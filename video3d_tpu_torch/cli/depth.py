@@ -1,0 +1,101 @@
+"""CLI: stereo depth extraction on the PyTorch port.
+
+``python -m video3d_tpu_torch.cli.depth <sbs.mp4> --stereo-only
+--work-dir WD --max-frames N``. Accepts the JAX CLI's flags
+(``video3d_tpu.cli.depth``); those of features not yet ported exit with
+"not yet ported" instead of being ignored. Without ``--stereo-only`` the
+JAX default is the CREStereo hybrid, which is not yet ported either.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+# flags of the JAX CLI whose features the port does not have yet
+_NOT_PORTED = (
+    "model", "fill_holes", "auto_range", "range_sample_frames",
+    "auto_range_shots", "shot_threshold", "guidance_weight", "blend",
+    "trust_scale", "guidance_every", "temporal_smooth", "flow_scale",
+    "temporal_median", "multihost", "coordinator", "num_processes",
+    "process_id", "profile_dir",
+)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="video-3d-depth-torch",
+        description="Extract depth maps from a side-by-side 3D video "
+                    "(PyTorch + CUDA port, stereo-only)",
+    )
+    p.add_argument("video", help="SBS stereoscopic video")
+    p.add_argument("--work-dir", default="temp_depth")
+    p.add_argument("--start-frame", type=int, default=0)
+    p.add_argument("--max-frames", type=int, default=None)
+    p.add_argument("--batch-size", type=int, default=None,
+                   help="Frames per device batch (auto from memory if unset)")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: cuda if available, else cpu)")
+    p.add_argument("--guidance", default=None,
+                   choices=["none", "dpt", "crestereo", "mono"],
+                   help="Only 'none' is ported")
+    p.add_argument("--stereo-only", action="store_true",
+                   help="Disable neural guidance (reference depth.py:507)")
+    p.add_argument("--no-neural", action="store_true",
+                   help="Alias of --stereo-only")
+    p.add_argument("--no-unsqueeze", action="store_true",
+                   help="Skip the 2x anamorphic unsqueeze")
+    p.add_argument("--per-frame-normalize", action="store_true",
+                   help="Per-frame min-max normalisation (reference parity)")
+    p.add_argument("--no-speckle", action="store_true",
+                   help="Skip speckle filtering")
+    p.add_argument("--force", action="store_true",
+                   help="Recompute even if cached")
+    for name in _NOT_PORTED:
+        p.add_argument("--" + name.replace("_", "-"), dest=name,
+                       nargs="?", const=True, default=None,
+                       help=argparse.SUPPRESS)
+    p.add_argument("--no-fill-holes", dest="fill_holes", action="store_const",
+                   const=False, help=argparse.SUPPRESS)
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    given = [n for n in _NOT_PORTED if getattr(args, n) is not None]
+    if given:
+        flags = ", ".join("--" + n.replace("_", "-") for n in given)
+        print(f"not yet ported: {flags}", file=sys.stderr)
+        return 2
+    if args.guidance is not None:
+        guidance = args.guidance
+    elif args.stereo_only or args.no_neural:
+        guidance = "none"
+    else:
+        guidance = "crestereo"  # the JAX CLI's default
+    if guidance != "none":
+        print(f"not yet ported: guidance {guidance!r} (use --stereo-only)",
+              file=sys.stderr)
+        return 2
+
+    from video3d_tpu_torch.stages.depth import StereoDepthExtractor
+
+    extractor = StereoDepthExtractor(
+        work_dir=args.work_dir,
+        batch_size=args.batch_size,
+        guidance=guidance,
+        unsqueeze_anamorphic=not args.no_unsqueeze,
+        normalize="per_frame" if args.per_frame_normalize else "fixed",
+        apply_speckle=not args.no_speckle,
+        device=args.device,
+    )
+    cache = extractor.process_video_sbs(
+        args.video, start_frame=args.start_frame,
+        max_frames=args.max_frames, force=args.force,
+    )
+    print(f"Depth maps: {cache}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,32 @@
+"""Hand-written CUDA kernels of the port, built for sm_90a at first use.
+
+Each wrapper module holds a plain integer launch count and sends a CUDA
+tensor to its kernel (or raises) and a CPU tensor to its plain PyTorch
+twin; nothing else chooses between them. ``_build`` compiles
+``video3d_tpu_torch/csrc/*.cu`` with nvcc into ``build/kernels/`` and loads
+the library with ctypes.
+
+Every TPU kernel of the JAX package (each function reaching
+``pl.pallas_call``) and where it stands in the port:
+
+==== ======================================================= ===============================
+ #    TPU kernel (video3d_tpu/...)                            port
+==== ======================================================= ===============================
+ B1   kernels/costvol.py:394 fused_cost_volume                csrc/costvol.cu, kernels/costvol.py
+ --   same, VIDEO3D_TPU_COSTVOL_NATIVE_I16=1 (:196)           still to port (env variant;
+                                                              costvol.cu already computes in
+                                                              int16 at 2x scale)
+ B2   kernels/sgm.py:617 _directional_pass_dmajor             csrc/sgm.cu, kernels/sgm.py
+ B3   kernels/sgm.py:882 sgm_wta_pallas_dmajor                csrc/sgm.cu, kernels/sgm.py
+ B4   kernels/speckle.py:159 speckle_filter_pallas            csrc/speckle.cu, kernels/speckle.py
+ B5   kernels/warp.py:91 warp_bilinear_shifts_pallas          still to port (flow EMA)
+ B6   kernels/flowmatch.py:122 flow_match_pallas              still to port (flow EMA)
+ B7a  kernels/attention.py:84 attention_multihead             still to port (DPT)
+ B7b  kernels/attention.py:116 attention_oneblock             still to port (DPT)
+ B8a  kernels/sgm.py:119 _directional_pass                    still to port ((B,H,W,D) sweeps)
+ B8b  kernels/sgm.py:254,279 transpose_to/from_wmajor         still to port (transposes)
+ B8c  kernels/sgm.py:391 _directional_pass_wmajor             still to port (W-major sweeps)
+==== ======================================================= ===============================
+
+``sgm_aggregate_pallas_dmajor`` (kernels/sgm.py:1018) only calls B2.
+"""

@@ -1,0 +1,131 @@
+"""Build and load the port's CUDA kernels.
+
+At first use, ``nvcc`` compiles every ``video3d_tpu_torch/csrc/*.cu`` for
+``sm_90a`` into one shared library with a plain C interface, which is
+loaded with ``ctypes``. The library lands in ``build/kernels/`` at the
+root of the checkout (listed in ``.gitignore``), named by a hash of the
+sources and flags, so an edited source rebuilds and an unchanged one is
+reused. No ``--use_fast_math``, and ``-fmad=false``: the kernels' f32
+steps (prefilter rounding, sub-pixel division, speckle bands) must round
+like the plain PyTorch twins.
+
+Every C entry takes tensor pointers and the CUDA stream as ``void*`` and
+returns ``cudaGetLastError()`` after its launches; :func:`check` raises on
+a non-zero code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+_SRC_DIR = _PKG / "csrc"
+_BUILD_DIR = _PKG.parent / "build" / "kernels"
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+# C entry points and their argument types (pointers and stream as void*)
+_SIGNATURES = {
+    # costvol.cu
+    "v3d_prefilter": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "v3d_cost_volume": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # sgm.cu
+    "v3d_sgm_sweep": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "v3d_sgm_wta": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # speckle.cu
+    "v3d_speckle": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _I, _P],
+}
+
+_lib = None
+build_seconds = None  # wall time of the build this process ran, if any
+
+
+def _nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                     "bin", "nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _sources() -> list:
+    return sorted(_SRC_DIR.glob("*.cu")) + sorted(_SRC_DIR.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return _BUILD_DIR / f"libv3dkernels-{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels if the library for these sources is missing."""
+    global build_seconds
+    out = library_path()
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+    os.replace(tmp, out)
+    build_seconds = time.perf_counter() - t0
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = handle
+    return _lib
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err}")
+
+
+def stream_of(t) -> int:
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require(t, dtype, ndim: int, name: str) -> None:
+    """Check what a kernel takes: a contiguous CUDA tensor of ``dtype``."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim} dims, got {t.dim()}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")

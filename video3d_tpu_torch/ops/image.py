@@ -1,0 +1,96 @@
+"""Batched image ops: SBS split, Lanczos width resampling, BT.601 gray.
+
+Counterpart of :mod:`video3d_tpu.ops.image`. The resamplers are one f32
+``torch.matmul`` against the same host-built interpolation matrix; the
+callers keep TF32 off (``torch.backends.cuda.matmul.allow_tf32`` False,
+PyTorch's default) so the product stays full f32.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+# BT.601 luma weights, same as OpenCV RGB2GRAY (reference depth.py:337-338).
+_LUMA_RGB = (0.299, 0.587, 0.114)
+
+
+def rgb_to_gray(frames: torch.Tensor) -> torch.Tensor:
+    """(..., H, W, 3) RGB -> (..., H, W) float32 luma in the input's scale."""
+    f = frames.to(torch.float32)
+    return (
+        _LUMA_RGB[0] * f[..., 0]
+        + _LUMA_RGB[1] * f[..., 1]
+        + _LUMA_RGB[2] * f[..., 2]
+    )
+
+
+def split_sbs(frames: torch.Tensor):
+    """Split side-by-side frames (..., H, W[, C]) into (left, right) views."""
+    axis = -2 if frames.shape[-1] in (1, 3) and frames.ndim >= 3 else -1
+    width = frames.shape[axis]
+    if width % 2 != 0:
+        raise ValueError(f"SBS width must be even, got {width}")
+    left, right = torch.split(frames, width // 2, dim=axis)
+    return left, right
+
+
+def _lanczos(t: np.ndarray, a: int) -> np.ndarray:
+    out = np.sinc(t) * np.sinc(t / a)
+    out[np.abs(t) >= a] = 0.0
+    return out
+
+
+@lru_cache(maxsize=64)
+def resample_matrix(n_in: int, n_out: int, method: str = "lanczos4") -> np.ndarray:
+    """(n_in, n_out) float32 interpolation matrix, columns summing to 1.
+
+    ``resampled = src @ M`` resamples the last axis from n_in to n_out with
+    OpenCV's centre alignment; 'lanczos4' (a=4) or 'bilinear'. A copy of
+    the JAX package's matrix, pinned equal to it by test.
+    """
+    scale = n_in / n_out
+    x_out = np.arange(n_out, dtype=np.float64)
+    src = (x_out + 0.5) * scale - 0.5
+    mat = np.zeros((n_in, n_out), dtype=np.float64)
+    if method == "lanczos4":
+        a = 4
+        base = np.floor(src).astype(np.int64)
+        for k in range(-a + 1, a + 1):
+            idx = base + k
+            w = _lanczos(src - idx, a)
+            np.add.at(mat, (np.clip(idx, 0, n_in - 1), np.arange(n_out)), w)
+    elif method == "bilinear":
+        base = np.floor(src).astype(np.int64)
+        frac = src - base
+        lo = np.clip(base, 0, n_in - 1)
+        hi = np.clip(base + 1, 0, n_in - 1)
+        np.add.at(mat, (lo, np.arange(n_out)), 1.0 - frac)
+        np.add.at(mat, (hi, np.arange(n_out)), frac)
+    else:
+        raise ValueError(f"Unknown resample method: {method}")
+    mat /= mat.sum(axis=0, keepdims=True)
+    return mat.astype(np.float32)
+
+
+@lru_cache(maxsize=64)
+def _resample_matrix_on(n_in: int, n_out: int, method: str,
+                        device: torch.device) -> torch.Tensor:
+    """The matrix, uploaded once per device: a per-call upload from
+    pageable memory blocks the host (0.86 ms per 960->1920 matrix on an
+    H100 host, two per batch)."""
+    return torch.from_numpy(resample_matrix(n_in, n_out, method)).to(device)
+
+
+def resize_width(img: torch.Tensor, w_out: int,
+                 method: str = "lanczos4") -> torch.Tensor:
+    """Resample the last (width) axis of (..., H, W) via one f32 matmul."""
+    mat = _resample_matrix_on(int(img.shape[-1]), w_out, method, img.device)
+    return torch.matmul(img.to(torch.float32), mat)
+
+
+def unsqueeze_width(img: torch.Tensor, method: str = "lanczos4") -> torch.Tensor:
+    """Anamorphic 2x horizontal unsqueeze (reference depth.py:263-266)."""
+    return resize_width(img, int(img.shape[-1]) * 2, method)
