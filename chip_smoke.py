@@ -7,16 +7,24 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 2. builds the port's CUDA kernels from ``video3d_tpu_torch/csrc`` (nvcc,
    sm_90a) and prints the build time;
 3. holds each kernel (B1 cost volume, B2 horizontal sweeps, B3 downward
-   sweeps + WTA, B4 speckle) against its plain PyTorch twin on the card at
-   the main path's shapes: two 1080p frames, 1920-wide eyes, D=64. B1, B2
-   and B4 must be bit-exact; B3 must have identical validity and disparity
-   within 1e-5 (margin within rtol 1e-6);
+   sweeps + WTA, B4 speckle, B5 flow warp, B6 flow match) against its
+   plain PyTorch twin on the card at the main path's shapes: two 1080p
+   frames, 1920-wide eyes, D=64; the warp at 1080x1920 with r = 16 and at
+   270x480 with r = 6, the match at 270x480. B1, B2 and B4 must be
+   bit-exact; B3 must have identical validity and disparity within 1e-5
+   (margin within rtol 1e-6); B5 within 1e-5, B6 within 2e-4 px;
 4. drives the stereo-only depth stage (``StereoDepthExtractor._run_batches``)
    over two batches of synthetic 1920x1080 SBS frames whose eyes differ by
    a known horizontal shift, writing PNG16 maps, and checks the launch
    counts, the valid fraction, the median disparity and one batch's maps
-   against the plain path on the card;
-5. times each kernel and twin with CUDA events, and the stage's frames/s.
+   against the plain path on the card; then drives the same stage with
+   the flow-guided temporal smoother (``temporal_smooth="flow"``) over two
+   batches of a panning clip, and checks the launch counts of B1-B6, the
+   pass-through of frame 0, the disparity, the flow of the pan, and the
+   first batch's smoothed maps against the same path run on the plain
+   twins;
+5. times each kernel and twin with CUDA events, the stage's frames/s with
+   and without the flow smoother, and the smoother alone per frame.
 
 The second-to-last line is a JSON object of the kernels, preceded by the
 card's name and power limit; the last line is
@@ -40,6 +48,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 B, H, W_SBS, D = 2, 1080, 1920, 64
 SHIFT_EYE = 8  # eye pixels; 16 px disparity after the 2x unsqueeze
+PAN_EYE = 2  # eye pixels per frame of the panning clip: 1 px at the 1/4 guide
 SEED = 0
 
 
@@ -62,6 +71,25 @@ def sbs_frames(n: int, seed: int) -> np.ndarray:
     left = base[:, :, :w_eye]
     right = base[:, :, SHIFT_EYE:SHIFT_EYE + w_eye]
     return np.ascontiguousarray(np.concatenate([left, right], axis=2))
+
+
+def pan_frames(n: int, seed: int) -> np.ndarray:
+    """(n, 1080, 1920, 3) uint8 SBS frames of one random texture (2-pixel
+    grain) panning PAN_EYE eye pixels per frame: frame t's left eye is
+    base[:, PAN_EYE*t:], so cur(x) = prev(x + PAN_EYE) (backward flow
+    +PAN_EYE). The right eye is the left shifted by SHIFT_EYE, as in
+    :func:`sbs_frames`."""
+    rng = np.random.default_rng(seed)
+    w_eye = W_SBS // 2
+    span = w_eye + SHIFT_EYE + PAN_EYE * n
+    base = rng.integers(0, 256, (H // 2, span // 2 + 1, 3), dtype=np.uint8)
+    base = np.repeat(np.repeat(base, 2, axis=0), 2, axis=1)[:H, :span]
+    out = np.empty((n, H, W_SBS, 3), dtype=np.uint8)
+    for t in range(n):
+        x0 = PAN_EYE * t
+        out[t, :, :w_eye] = base[:, x0:x0 + w_eye]
+        out[t, :, w_eye:] = base[:, x0 + SHIFT_EYE:x0 + SHIFT_EYE + w_eye]
+    return out
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -87,10 +115,17 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is visible")
     sys.path.insert(0, str(ROOT))
-    from video3d_tpu_torch.kernels import _build, costvol, sgm, speckle
+    from video3d_tpu_torch.kernels import (_build, costvol, flowmatch, sgm,
+                                           speckle, warp)
+    from video3d_tpu_torch.ops.flow import (FlowEMAParams, estimate_flow_fast,
+                                            flow_ema_scan, flow_match_plain,
+                                            warp_bilinear_shifts_plain)
+    from video3d_tpu_torch.ops.image import resize2d
     from video3d_tpu_torch.ops.speckle import speckle_filter_device
     from video3d_tpu_torch.ops.stereo import INVALID, SGBMParams
+    from video3d_tpu_torch.parallel.temporal import TemporalFlowEMAStream
     from video3d_tpu_torch.stages.depth import (StereoDepthExtractor,
+                                                depth_batch_pipeline,
                                                 disparity_to_uint16,
                                                 gray_pair)
 
@@ -141,8 +176,9 @@ def main() -> int:
     torch.cuda.synchronize()
     err = (cost.int() - cost_p.int()).abs().max().item()
     check(err == 0 and torch.equal(lf, lf_p), f"B1 differs from twin: {err}")
+    at_1080 = "ms/frame at 1080p D=64"
     rows.append(dict(
-        name="B1 cost_volume", source="video3d_tpu_torch/csrc/costvol.cu",
+        at=at_1080, name="B1 cost_volume", source="video3d_tpu_torch/csrc/costvol.cu",
         replaces="video3d_tpu/kernels/costvol.py:394", max_abs_err=err,
         ms=cuda_ms(lambda: costvol.cost_volume(gl, gr, p, inv), 5) / B,
         plain_ms=cuda_ms(lambda: costvol.cost_volume_plain(gl, gr, p, inv),
@@ -155,7 +191,7 @@ def main() -> int:
     err = (acc.int() - acc_p.int()).abs().max().item()
     check(err == 0, f"B2 differs from twin: {err}")
     rows.append(dict(
-        name="B2 horizontal_sweeps", source="video3d_tpu_torch/csrc/sgm.cu",
+        at=at_1080, name="B2 horizontal_sweeps", source="video3d_tpu_torch/csrc/sgm.cu",
         replaces="video3d_tpu/kernels/sgm.py:617", max_abs_err=err,
         ms=cuda_ms(lambda: sgm.horizontal_sweeps(cost, p), 5) / B,
         plain_ms=cuda_ms(lambda: sgm.horizontal_sweeps_plain(cost, p),
@@ -171,7 +207,7 @@ def main() -> int:
     check(err <= 1e-5, f"B3 disparity differs from twin: {err}")
     check(torch.allclose(m, m_p, rtol=1e-6, atol=0.0), "B3 margin differs")
     rows.append(dict(
-        name="B3 down_sweeps_wta", source="video3d_tpu_torch/csrc/sgm.cu",
+        at=at_1080, name="B3 down_sweeps_wta", source="video3d_tpu_torch/csrc/sgm.cu",
         replaces="video3d_tpu/kernels/sgm.py:882", max_abs_err=err,
         # the kernel adds into its acc argument: time it on a scratch copy
         # (int16 wrap-around in the scratch does not change the work done)
@@ -188,44 +224,95 @@ def main() -> int:
     err = (sp - sp_p).abs().max().item()
     check(torch.equal(sp, sp_p), f"B4 differs from twin: {err}")
     rows.append(dict(
-        name="B4 speckle_filter", source="video3d_tpu_torch/csrc/speckle.cu",
+        at=at_1080, name="B4 speckle_filter", source="video3d_tpu_torch/csrc/speckle.cu",
         replaces="video3d_tpu/kernels/speckle.py:159", max_abs_err=err,
         ms=cuda_ms(lambda: speckle.speckle_filter(disp, *sp_args), 10) / B,
         plain_ms=cuda_ms(lambda: speckle_filter_device(disp, *sp_args),
                          3) / B))
     del cost, acc, disp, sp, sp_p, frames2
     torch.cuda.empty_cache()
+
+    # B5 at the full-resolution depth warp (r = max_warp = 16) and at the
+    # finest flow level at flow_scale 4 (270x480, r = 4 + search = 6).
+    # Unit-scale images, as the JAX package's own warp test, so the 1e-5
+    # bound is meaningful; the kernel targets bit-equality with the twin.
+    rng = np.random.default_rng(SEED)
+
+    def plane(lo, hi, shape):
+        return torch.from_numpy(
+            rng.uniform(lo, hi, shape).astype(np.float32)).to(dev)
+
+    b5 = []
+    for shape, r in (((H, W_SBS), 16), ((270, 480), 6)):
+        img = torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).to(dev)
+        fy, fx = plane(-r - 1, r + 1, shape), plane(-r - 1, r + 1, shape)
+        got = warp.warp_bilinear_shifts(img, fy, fx, r)
+        want = warp_bilinear_shifts_plain(img, fy, fx, r)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        n_ne = int((got != want).sum().item())
+        check(err <= 1e-5, f"B5 differs from twin at {shape} r={r}: {err}")
+        b5.append(dict(
+            shape=shape, r=r, err=err, n_ne=n_ne,
+            ms=cuda_ms(lambda: warp.warp_bilinear_shifts(img, fy, fx, r), 20),
+            plain_ms=cuda_ms(
+                lambda: warp_bilinear_shifts_plain(img, fy, fx, r), 3)))
+        print(f"B5 warp {shape[0]}x{shape[1]} r={r}: max |err| {err} "
+              f"({n_ne} values differ); {b5[-1]['ms']:.4f} ms/call vs plain "
+              f"{b5[-1]['plain_ms']:.4f} ms/call on {card}")
+    rows.append(dict(
+        at="ms/call, 1080x1920 r=16 (one per frame)", name="B5 warp",
+        source="video3d_tpu_torch/csrc/warp.cu",
+        replaces="video3d_tpu/kernels/warp.py:91",
+        max_abs_err=max(b["err"] for b in b5), ms=b5[0]["ms"],
+        plain_ms=b5[0]["plain_ms"]))
+
+    # B6 at the finest flow level at flow_scale 4
+    shape = (270, 480)
+    cur, prev_w = plane(0, 255, shape), plane(0, 255, shape)
+    fy, fx = plane(-3, 3, shape), plane(-3, 3, shape)
+    got = flowmatch.flow_match(cur, prev_w, fy, fx, 2, 3, 2.0)
+    want = flow_match_plain(cur, prev_w, fy, fx, 2, 3, 2.0)
+    torch.cuda.synchronize()
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    check(err <= 2e-4, f"B6 differs from twin: {err}")
+    rows.append(dict(
+        at="ms/call at 270x480, search 2, radius 3, tau 2", name="B6 flow_match",
+        source="video3d_tpu_torch/csrc/flowmatch.cu",
+        replaces="video3d_tpu/kernels/flowmatch.py:122", max_abs_err=err,
+        ms=cuda_ms(lambda: flowmatch.flow_match(cur, prev_w, fy, fx, 2, 3,
+                                                2.0), 20),
+        plain_ms=cuda_ms(lambda: flow_match_plain(cur, prev_w, fy, fx, 2, 3,
+                                                  2.0), 3)))
+    del img, fy, fx, got, want, cur, prev_w
+    torch.cuda.empty_cache()
     for r in rows:
-        print(f"{r['name']}: equal to twin (max |err| {r['max_abs_err']}); "
-              f"{r['ms']:.3f} ms/frame vs plain {r['plain_ms']:.3f} ms/frame "
-              f"at 1080p D=64 on {card}")
+        print(f"{r['name']}: matches its twin (max |err| {r['max_abs_err']}); "
+              f"{r['ms']:.4f} vs plain {r['plain_ms']:.4f} {r['at']} "
+              f"on {card}")
 
     # -- 4. the main path ----------------------------------------------------
-    work = Path(tempfile.mkdtemp(prefix="v3d_smoke_"))
-    try:
-        ext = StereoDepthExtractor(work_dir=str(work), guidance="none",
-                                   device=dev)
-        batch = ext._auto_batch_size(H, W_SBS)
-        batches = [(sbs_frames(batch, SEED + 1 + i), batch) for i in range(2)]
-        cache = work / "depth_smoke"
-        for mod, attr in ((costvol, "launches"), (sgm, "sweep_launches"),
-                          (sgm, "wta_launches"), (speckle, "launches")):
-            setattr(mod, attr, 0)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        n = ext._run_batches(batches, cache)
-        torch.cuda.synchronize()
-        run_s = time.perf_counter() - t0
-        launches = [costvol.launches, sgm.sweep_launches, sgm.wta_launches,
-                    speckle.launches]
-        print(f"main path: {n} frames in batches of {batch}, "
-              f"{run_s:.3f} s incl. first-batch warm-up and PNG writes; "
-              f"launches B1..B4 = {launches}")
-        for r, k in zip(rows, launches):
-            r["launches"] = k
-        check(n == 2 * batch, f"wrote {n} frames")
-        check(all(k > 0 for k in launches), f"a kernel never ran: {launches}")
+    def plain_depth(frames_np):
+        """uint16 maps and left gray of the depth path on the plain twins."""
+        x = torch.from_numpy(frames_np).to(dev)
+        pgl, pgr = gray_pair(x)
+        pcost = costvol.cost_volume_plain(pgl, pgr, p, inv)
+        pdisp = sgm.down_sweeps_wta_plain(
+            pcost, sgm.horizontal_sweeps_plain(pcost, p), p)
+        pdisp = speckle_filter_device(pdisp, *sp_args)
+        return disparity_to_uint16(pdisp, p.num_disparities), pgl
 
+    def counts(reset: bool = False) -> list:
+        mods = ((costvol, "launches"), (sgm, "sweep_launches"),
+                (sgm, "wta_launches"), (speckle, "launches"),
+                (warp, "launches"), (flowmatch, "launches"))
+        if reset:
+            for mod, attr in mods:
+                setattr(mod, attr, 0)
+        return [getattr(mod, attr) for mod, attr in mods]
+
+    def read_maps(cache, n):
         from video3d_tpu.core import list_depth_frames, load_depth_png16
 
         files = list_depth_frames(cache)
@@ -233,39 +320,156 @@ def main() -> int:
         maps = np.stack([load_depth_png16(f) for f in files])
         check(maps.shape == (n, H, W_SBS) and maps.dtype == np.uint16,
               f"maps {maps.shape} {maps.dtype}")
+        return maps
+
+    def check_disparity(maps, what):
         disp_px = maps.astype(np.float64) * (p.num_disparities / 65535.0)
         valid = maps > 0
         frac = float(valid.mean())
         med = float(np.median(disp_px[valid]))
-        print(f"valid fraction {frac:.4f}; median disparity {med:.4f} px "
-              f"(shift {2 * SHIFT_EYE} px)")
-        check(0.5 < frac <= 1.0, f"valid fraction {frac}")
-        check(abs(med - 2 * SHIFT_EYE) <= 0.5, f"median disparity {med}")
+        print(f"{what}: valid fraction {frac:.4f}; median disparity "
+              f"{med:.4f} px (shift {2 * SHIFT_EYE} px)")
+        check(0.5 < frac <= 1.0, f"{what}: valid fraction {frac}")
+        check(abs(med - 2 * SHIFT_EYE) <= 0.5,
+              f"{what}: median disparity {med}")
+
+    work = Path(tempfile.mkdtemp(prefix="v3d_smoke_"))
+    try:
+        ext = StereoDepthExtractor(work_dir=str(work), guidance="none",
+                                   device=dev)
+        batch = ext._auto_batch_size(H, W_SBS)
+        batches = [(sbs_frames(batch, SEED + 1 + i), batch) for i in range(2)]
+        cache = work / "depth_smoke"
+        counts(reset=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = ext._run_batches(batches, cache)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = counts()[:4]
+        print(f"main path: {n} frames in batches of {batch}, "
+              f"{run_s:.3f} s incl. first-batch warm-up and PNG writes; "
+              f"launches B1..B4 = {launches}")
+        for r, k in zip(rows, launches):
+            r["launches"] = k
+        check(n == 2 * batch, f"wrote {n} frames")
+        check(all(k > 0 for k in launches), f"a kernel never ran: {launches}")
+        maps = read_maps(cache, n)
+        check_disparity(maps, "main path")
 
         # the first batch's maps against the plain path on the card
-        x = torch.from_numpy(batches[0][0]).to(dev)
-        pgl, pgr = gray_pair(x)
-        pcost = costvol.cost_volume_plain(pgl, pgr, p, inv)
-        pdisp = sgm.down_sweeps_wta_plain(
-            pcost, sgm.horizontal_sweeps_plain(pcost, p), p)
-        pdisp = speckle_filter_device(pdisp, *sp_args)
-        plain_maps = disparity_to_uint16(pdisp, p.num_disparities).cpu()
-        plain_maps = plain_maps.to(torch.int32).numpy()
+        plain_maps, _ = plain_depth(batches[0][0])
+        plain_maps = plain_maps.cpu().to(torch.int32).numpy()
         n_diff = int((plain_maps != maps[:batch].astype(np.int32)).sum())
         print(f"batch 0 uint16 maps vs plain path: {n_diff} pixels differ")
         check(n_diff == 0, "main path differs from the plain path")
-        del x, pgl, pgr, pcost, pdisp
+        torch.cuda.empty_cache()
+
+        # -- 4b. the flow-smoothed path --------------------------------------
+        fext = StereoDepthExtractor(work_dir=str(work), guidance="none",
+                                    device=dev, temporal_smooth="flow")
+        fbatch = fext._auto_batch_size(H, W_SBS)
+        clip = pan_frames(2 * fbatch, SEED + 10)
+        fbatches = [(clip[i * fbatch:(i + 1) * fbatch], fbatch)
+                    for i in range(2)]
+        fcache = work / "depth_flow"
+        counts(reset=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n_flow = fext._run_batches(fbatches, fcache)
+        torch.cuda.synchronize()
+        flow_s = time.perf_counter() - t0
+        flaunches = counts()
+        print(f"flow path: {n_flow} frames in batches of {fbatch}, "
+              f"{flow_s:.3f} s "
+              f"incl. first-batch warm-up and PNG writes; launches B1..B6 = "
+              f"{flaunches}")
+        for r, k in zip(rows[4:], flaunches[4:]):
+            r["launches"] = k
+        check(n_flow == 2 * fbatch, f"wrote {n_flow} frames")
+        check(all(k > 0 for k in flaunches),
+              f"a kernel never ran on the flow path: {flaunches}")
+        fmaps = read_maps(fcache, n_flow)
+        check_disparity(fmaps, "flow path")
+
+        # frame 0 passes through: the unsmoothed map of the kernel path
+        raw, guide0 = depth_batch_pipeline(
+            torch.from_numpy(fbatches[0][0]).to(dev), return_guide=True)
+        raw_np = raw.cpu().to(torch.int32).numpy()
+        check(np.array_equal(raw_np[0], fmaps[0].astype(np.int32)),
+              "flow path frame 0 differs from the unsmoothed map")
+        n_sm = int((raw_np[1:] != fmaps[1:fbatch].astype(np.int32)).sum())
+        print(f"flow path: frame 0 equals the unsmoothed map; the smoother "
+              f"changed {n_sm} pixels of frames 1..{fbatch - 1}")
+
+        # the motion of the pan on two consecutive guides (1/4 scale)
+        rq = max(1, int(round(FlowEMAParams().max_warp / 4)))
+        fy, fx = estimate_flow_fast(guide0[1], guide0[0], max_flow=rq)
+        pan = 2 * PAN_EYE / 4  # eye px -> unsqueezed px -> guide px
+        med_fx, med_fy = fx.median().item(), fy.median().item()
+        print(f"flow of the pan at the 1/4 guide: median x {med_fx:.4f} px, "
+              f"y {med_fy:.4f} px (pan {pan} px, 0 px)")
+        check(abs(med_fx - pan) <= 0.25, f"median x-flow {med_fx}")
+        check(abs(med_fy) <= 0.25, f"median y-flow {med_fy}")
+
+        # batch 0 against the same path on the plain twins: the depth twins
+        # on the card, the smoother's twins on the CPU
+        pmaps, pgl = plain_depth(fbatches[0][0])
+        n_diff = int((pmaps != raw).sum().item())
+        check(n_diff == 0, f"flow path raw maps differ from plain: {n_diff}")
+        pguide = resize2d(pgl, -(-H // 4), -(-W_SBS // 4), "bilinear")
+        t0 = time.perf_counter()
+        twin = TemporalFlowEMAStream().push(pmaps.cpu(), pguide.cpu())
+        twin_s = time.perf_counter() - t0
+        d = np.abs(twin.to(torch.int32).numpy()
+                   - fmaps[:fbatch].astype(np.int32))
+        frac = float((d <= 16).mean())
+        print(f"flow path batch 0 vs plain twins (smoother on the CPU, "
+              f"{twin_s:.1f} s): {frac:.6f} of pixels within 16 uint16 units "
+              f"(1/64 px), max |diff| {int(d.max())}")
+        check(frac >= 0.999, f"flow path vs twins: {frac} within 16")
+        del raw, guide0, pmaps, pgl, pguide, fy, fx
         torch.cuda.empty_cache()
 
         # -- 5. stage frames/s on the device (no PNG writes) ---------------
-        from video3d_tpu_torch.stages.depth import depth_batch_pipeline
-
         xb = torch.from_numpy(batches[1][0]).to(dev)
         ms = cuda_ms(lambda: depth_batch_pipeline(xb), 3)
         fps = batch * 1000.0 / ms
         print(f"stage: {ms:.3f} ms per batch of {batch} = {fps:.2f} frames/s "
               f"(1080p SBS, stereo-only, device time) on {card}")
         print(f"main path incl. PNG writes: {n / run_s:.2f} frames/s on {card}")
+
+        xf = torch.from_numpy(fbatches[1][0]).to(dev)
+        stream = TemporalFlowEMAStream()
+
+        def flow_stage():
+            depth, guide = depth_batch_pipeline(xf, return_guide=True)
+            stream.push(depth, guide)
+
+        ms_f = cuda_ms(flow_stage, 3)  # the warm-up call seeds the carry
+        print(f"stage with the flow smoother: {ms_f:.3f} ms per batch of "
+              f"{fbatch} = {fbatch * 1000.0 / ms_f:.2f} frames/s (device "
+              f"time) on {card}")
+        print(f"flow path incl. PNG writes: {n_flow / flow_s:.2f} frames/s on "
+              f"{card}")
+
+        # the smoother alone, shaped as the JAX package's bench_smooth: T=8
+        # uint16 1080p depth, 270x480 guide, one scan from frame 0
+        srng = np.random.default_rng(2)
+        sd = torch.from_numpy(srng.integers(0, 65535, (8, H, W_SBS))
+                              .astype(np.uint16)).to(dev)
+        sg = torch.from_numpy(srng.integers(0, 255, (8, 270, 480))
+                              .astype(np.float32)).to(dev)
+        ms_s = cuda_ms(lambda: flow_ema_scan(None, sd, sg, FlowEMAParams()),
+                       3) / 8
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        flow_ema_scan(None, sd, sg, FlowEMAParams())
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1000.0 / 8
+        print(f"smoother alone: {ms_s:.3f} ms/frame CUDA events, "
+              f"{host_ms:.3f} ms/frame host clock (T=8, 1080p depth, "
+              f"270x480 guide) = {1000.0 / ms_s:.2f} frames/s on {card}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -47,6 +47,10 @@ def test_port_is_jax_free_and_params_pinned():
         "import video3d_tpu_torch.stages.depth, video3d_tpu_torch.cli.depth\n"
         "import video3d_tpu_torch.kernels.costvol, "
         "video3d_tpu_torch.kernels.sgm, video3d_tpu_torch.kernels.speckle\n"
+        "import video3d_tpu_torch.ops.flow, "
+        "video3d_tpu_torch.parallel.temporal\n"
+        "import video3d_tpu_torch.kernels.warp, "
+        "video3d_tpu_torch.kernels.flowmatch\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "print('ok')\n"
     )
@@ -145,7 +149,7 @@ def test_process_video_sbs_matches_jax(tmp_path, clip):
         work_dir=str(tmp_path / "jax"), batch_size=2, guidance="none",
         params=jp).process_video_sbs(str(video))
     ext = tdepth.StereoDepthExtractor(work_dir=str(tmp_path / "torch"),
-                                      batch_size=2, params=p)
+                                      batch_size=2, params=p, device="cpu")
     tcache = ext.process_video_sbs(str(video))
     jnames = [f.name for f in list_depth_frames(jcache)]
     tnames = [f.name for f in list_depth_frames(tcache)]
@@ -163,7 +167,18 @@ def test_process_video_sbs_matches_jax(tmp_path, clip):
 def test_guidance_not_yet_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tdepth.StereoDepthExtractor(work_dir=str(tmp_path),
-                                    guidance="crestereo")
+                                    guidance="crestereo", device="cpu")
+
+
+def test_no_silent_cpu_fallback(tmp_path, monkeypatch):
+    """Without CUDA the extractor raises unless the CPU is asked for."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tdepth.StereoDepthExtractor(work_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tdepth.StereoDepthExtractor(work_dir=str(tmp_path), device="cuda")
+    ext = tdepth.StereoDepthExtractor(work_dir=str(tmp_path), device="cpu")
+    assert ext.device == torch.device("cpu")
 
 
 def test_cli_stereo_only_and_unported_flags(tmp_path, capsys):
@@ -171,12 +186,21 @@ def test_cli_stereo_only_and_unported_flags(tmp_path, capsys):
 
     video = tmp_path / "sbs.mp4"
     make_test_video(video, n_frames=3, width=64, height=24)
-    assert main([str(video), "--temporal-smooth", "flow",
-                 "--stereo-only"]) == 2
-    assert main([str(video)]) == 2  # CREStereo default: not yet ported
+    assert main([str(video), "--fill-holes", "--stereo-only",
+                 "--device", "cpu"]) == 2
+    assert main([str(video), "--device", "cpu"]) == 2  # CREStereo default
     assert "not yet ported" in capsys.readouterr().err
     work = tmp_path / "wd"
     assert main([str(video), "--stereo-only", "--work-dir", str(work),
-                 "--max-frames", "2", "--batch-size", "2"]) == 0
+                 "--max-frames", "2", "--batch-size", "2",
+                 "--device", "cpu"]) == 0
     pngs = sorted(work.glob("depth_*/depth_*.png"))
     assert [f.name for f in pngs] == ["depth_000000.png", "depth_000001.png"]
+    flow = tmp_path / "wf"
+    assert main([str(video), "--temporal-smooth", "flow", "--stereo-only",
+                 "--work-dir", str(flow), "--max-frames", "3",
+                 "--batch-size", "2", "--device", "cpu"]) == 0
+    dirs = list(flow.glob("depth_*"))
+    assert len(dirs) == 1
+    assert sorted(f.name for f in dirs[0].glob("depth_*.png")) == [
+        f"depth_{i:06d}.png" for i in range(3)]

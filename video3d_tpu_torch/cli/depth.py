@@ -5,6 +5,8 @@
 (``video3d_tpu.cli.depth``); those of features not yet ported exit with
 "not yet ported" instead of being ignored. Without ``--stereo-only`` the
 JAX default is the CREStereo hybrid, which is not yet ported either.
+``--device`` defaults to ``cuda``; ``--device cpu`` is the only way onto
+the CPU (the kernels' plain twins).
 """
 
 from __future__ import annotations
@@ -16,9 +18,8 @@ import sys
 _NOT_PORTED = (
     "model", "fill_holes", "auto_range", "range_sample_frames",
     "auto_range_shots", "shot_threshold", "guidance_weight", "blend",
-    "trust_scale", "guidance_every", "temporal_smooth", "flow_scale",
-    "temporal_median", "multihost", "coordinator", "num_processes",
-    "process_id", "profile_dir",
+    "trust_scale", "guidance_every", "multihost", "coordinator",
+    "num_processes", "process_id", "profile_dir",
 )
 
 
@@ -34,8 +35,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-frames", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=None,
                    help="Frames per device batch (auto from memory if unset)")
-    p.add_argument("--device", default=None,
-                   help="torch device (default: cuda if available, else cpu)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; 'cpu' runs the plain "
+                        "twins of the kernels)")
     p.add_argument("--guidance", default=None,
                    choices=["none", "dpt", "crestereo", "mono"],
                    help="Only 'none' is ported")
@@ -49,6 +51,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Per-frame min-max normalisation (reference parity)")
     p.add_argument("--no-speckle", action="store_true",
                    help="Skip speckle filtering")
+    p.add_argument("--temporal-smooth", default=None,
+                   choices=("none", "median", "flow"),
+                   help="Temporal depth filtering: 'median' = median-of-3, "
+                        "'flow' = optical-flow-guided EMA")
+    p.add_argument("--flow-scale", type=int, default=4, choices=(2, 4),
+                   help="Flow-EMA guide reduction: 2 = finer motion edges "
+                        "at ~4x flow cost; 4 = default")
+    p.add_argument("--temporal-median", action="store_true",
+                   help="Alias of --temporal-smooth median")
     p.add_argument("--force", action="store_true",
                    help="Recompute even if cached")
     for name in _NOT_PORTED:
@@ -87,6 +98,9 @@ def main(argv=None) -> int:
         unsqueeze_anamorphic=not args.no_unsqueeze,
         normalize="per_frame" if args.per_frame_normalize else "fixed",
         apply_speckle=not args.no_speckle,
+        temporal_median=args.temporal_median,
+        temporal_smooth=args.temporal_smooth,
+        flow_scale=args.flow_scale,
         device=args.device,
     )
     cache = extractor.process_video_sbs(

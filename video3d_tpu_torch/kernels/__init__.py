@@ -19,13 +19,16 @@ Every TPU kernel of the JAX package (each function reaching
  B2   kernels/sgm.py:617 _directional_pass_dmajor             csrc/sgm.cu, kernels/sgm.py
  B3   kernels/sgm.py:882 sgm_wta_pallas_dmajor                csrc/sgm.cu, kernels/sgm.py
  B4   kernels/speckle.py:159 speckle_filter_pallas            csrc/speckle.cu, kernels/speckle.py
- B5   kernels/warp.py:91 warp_bilinear_shifts_pallas          still to port (flow EMA)
- B6   kernels/flowmatch.py:122 flow_match_pallas              still to port (flow EMA)
+ B5   kernels/warp.py:91 warp_bilinear_shifts_pallas          csrc/warp.cu, kernels/warp.py
+ B6   kernels/flowmatch.py:122 flow_match_pallas              csrc/flowmatch.cu, kernels/flowmatch.py
  B7a  kernels/attention.py:84 attention_multihead             still to port (DPT)
  B7b  kernels/attention.py:116 attention_oneblock             still to port (DPT)
  B8a  kernels/sgm.py:119 _directional_pass                    still to port ((B,H,W,D) sweeps)
  B8b  kernels/sgm.py:254,279 transpose_to/from_wmajor         still to port (transposes)
  B8c  kernels/sgm.py:391 _directional_pass_wmajor             still to port (W-major sweeps)
+ P    tools/probe_i16.py:34 run (toy kernels :50-70)          still to port (Mosaic int16
+                                                              lowering probes; a toolchain
+                                                              probe, not a system path)
 ==== ======================================================= ===============================
 
 ``sgm_aggregate_pallas_dmajor`` (kernels/sgm.py:1018) only calls B2.

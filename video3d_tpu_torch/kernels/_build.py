@@ -46,6 +46,10 @@ _SIGNATURES = {
     "v3d_sgm_wta": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # speckle.cu
     "v3d_speckle": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _I, _P],
+    # warp.cu
+    "v3d_warp": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # flowmatch.cu
+    "v3d_flow_match": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
 
 _lib = None

@@ -91,6 +91,26 @@ def resize_width(img: torch.Tensor, w_out: int,
     return torch.matmul(img.to(torch.float32), mat)
 
 
+def resize_height(img: torch.Tensor, h_out: int,
+                  method: str = "lanczos4") -> torch.Tensor:
+    """Resample the second-to-last (height) axis of (..., H, W): one f32
+    matmul of the transposed matrix from the left, so the result is
+    contiguous."""
+    mat = _resample_matrix_on(int(img.shape[-2]), h_out, method, img.device)
+    return torch.matmul(mat.t(), img.to(torch.float32))
+
+
+def resize2d(img: torch.Tensor, h_out: int, w_out: int,
+             method: str = "lanczos4") -> torch.Tensor:
+    """Separable 2-D resize of (..., H, W) -> (..., h_out, w_out), f32."""
+    out = img.to(torch.float32)
+    if int(img.shape[-2]) != h_out:
+        out = resize_height(out, h_out, method)
+    if int(img.shape[-1]) != w_out:
+        out = resize_width(out, w_out, method)
+    return out
+
+
 def unsqueeze_width(img: torch.Tensor, method: str = "lanczos4") -> torch.Tensor:
     """Anamorphic 2x horizontal unsqueeze (reference depth.py:263-266)."""
     return resize_width(img, int(img.shape[-1]) * 2, method)

@@ -7,8 +7,11 @@ invalid pixels to 0, fixed-range or per-frame normalisation, uint16 out.
 Host I/O -- decode, PNG16 writing, cache keys -- is the JAX package's
 JAX-free ``video3d_tpu.core``.
 
-Only ``guidance='none'`` is ported; neural guidance, hole fill, temporal
-smoothing and the sharded/fan-out variants are not yet.
+Temporal smoothing (``temporal_smooth``): ``median`` runs the median-of-3
+along the frame axis, ``flow`` the flow-guided EMA on a 1/``flow_scale``
+gray guide of the left eye (:mod:`video3d_tpu_torch.parallel.temporal`,
+kernels B5 and B6). Only ``guidance='none'`` is ported; neural guidance,
+hole fill and the sharded/fan-out variants are not yet.
 """
 
 from __future__ import annotations
@@ -24,8 +27,12 @@ import torch
 from video3d_tpu.core import DepthMapWriter, VideoReader, get_video_info
 from video3d_tpu.core.cache import (create_work_directory, depth_cache_dir,
                                     is_depth_cached_range)
-from video3d_tpu_torch.ops.image import rgb_to_gray, split_sbs, unsqueeze_width
+from video3d_tpu_torch.ops.flow import FlowEMAParams
+from video3d_tpu_torch.ops.image import (resize2d, rgb_to_gray, split_sbs,
+                                         unsqueeze_width)
 from video3d_tpu_torch.ops.stereo import SGBMParams, sgbm_disparity
+from video3d_tpu_torch.parallel.temporal import (TemporalFlowEMAStream,
+                                                 TemporalMedianStream)
 
 # Same numeric contract as the JAX stage's ALGO_VERSION 2 (int16 cost,
 # 5-path MODE_SGBM); the cache key adds BACKEND so the two never alias.
@@ -67,14 +74,24 @@ def depth_batch_pipeline(
     unsqueeze: bool = True,
     normalize: str = "fixed",
     apply_speckle: bool = True,
-) -> torch.Tensor:
+    return_guide: bool = False,
+    guide_scale: int = 4,
+):
     """uint8 SBS RGB batch (B, H, W, 3) -> uint16 depth batch (B, H, W').
 
     W' is W (unsqueezed anamorphic) or W//2. Runs on ``frames.device``.
+    ``return_guide``: also return the bilinear 1/``guide_scale`` gray of
+    the left eye, (B, ceil(H/s), ceil(W'/s)) f32 -- the motion guide of
+    the flow smoother.
     """
     gl, gr = gray_pair(frames, unsqueeze)
     disp = sgbm_disparity(gl, gr, params, apply_speckle=apply_speckle)
-    return disparity_to_uint16(disp, params.num_disparities, normalize)
+    out = disparity_to_uint16(disp, params.num_disparities, normalize)
+    if return_guide:
+        h, w = gl.shape[-2], gl.shape[-1]
+        s = int(guide_scale)
+        return out, resize2d(gl, -(-h // s), -(-w // s), method="bilinear")
+    return out
 
 
 class StereoDepthExtractor:
@@ -88,9 +105,16 @@ class StereoDepthExtractor:
         unsqueeze_anamorphic: bool = True,
         normalize: str = "fixed",
         apply_speckle: bool = True,
+        temporal_median: bool = False,
+        temporal_smooth: Optional[str] = None,
+        flow_scale: int = 4,
         params: SGBMParams = SGBMParams(),
         device=None,
     ):
+        """``device`` None means ``cuda``, which must be available; the
+        plain twins run only when ``device="cpu"`` is asked for.
+        ``temporal_smooth``: none|median|flow (``temporal_median=True``
+        spells median); ``flow_scale`` 2 or 4 is the guide's reduction."""
         if guidance not in ("none", "stereo_only"):
             raise NotImplementedError(
                 f"guidance={guidance!r} is not yet ported (stereo-only)")
@@ -103,10 +127,21 @@ class StereoDepthExtractor:
         self.unsqueeze_anamorphic = bool(unsqueeze_anamorphic)
         self.normalize = normalize
         self.apply_speckle = bool(apply_speckle)
+        if temporal_smooth is None:
+            temporal_smooth = "median" if temporal_median else "none"
+        if temporal_smooth not in ("none", "median", "flow"):
+            raise ValueError(
+                f"temporal_smooth must be none|median|flow: {temporal_smooth}")
+        self.temporal_smooth = temporal_smooth
+        if flow_scale not in (2, 4):
+            raise ValueError(f"flow_scale must be 2 or 4: {flow_scale}")
+        self.flow_scale = int(flow_scale)
         self.params = params
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        self.device = torch.device(device)
+        self.device = torch.device("cuda" if device is None else device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "StereoDepthExtractor: CUDA is not available; pass "
+                "device=\"cpu\" (CLI: --device cpu) to run the plain twins")
 
     def _auto_batch_size(self, height: int, width: int) -> int:
         """Frames per batch from free device memory.
@@ -132,6 +167,12 @@ class StereoDepthExtractor:
         key = f"{self.model_checkpoint}+a{ALGO_VERSION}"
         if self.normalize != "fixed":
             key += f"+norm={self.normalize}"
+        if self.temporal_smooth == "median":
+            key += "+tmedian"
+        elif self.temporal_smooth == "flow":
+            key += "+tflow"
+            if self.flow_scale != 4:
+                key += f"@{self.flow_scale}"
         if not self.apply_speckle:
             key += "+nospeckle"
         default = SGBMParams()
@@ -144,16 +185,33 @@ class StereoDepthExtractor:
             key += f"+sgbm({diff})"
         return key + f"+{BACKEND}"
 
-    def _run_batches(self, batches: Iterable, cache: Path) -> int:
-        """Upload, run and write ``(frames uint8 (B, H, W, 3), valid)``
-        batches into ``cache``; returns the number of frames written.
+    def _smoother(self):
+        """A fresh temporal smoother for one run, or None."""
+        if self.temporal_smooth == "median":
+            return TemporalMedianStream()
+        if self.temporal_smooth == "flow":
+            # one extra pyramid level at flow_scale 2 keeps the coarsest
+            # level at the same absolute resolution as the default
+            return TemporalFlowEMAStream(FlowEMAParams(
+                levels=3 + (self.flow_scale == 2)))
+        return None
 
-        One batch in flight: batch i's maps are copied to the host
-        asynchronously and handed to the PNG writer while batch i+1 runs.
+    def _run_batches(self, batches: Iterable, cache: Path) -> int:
+        """Upload, run, smooth and write ``(frames uint8 (B, H, W, 3),
+        valid)`` batches into ``cache``; returns the number of frames read.
+
+        Each batch's ``depth[:valid]`` (and guide) goes through the
+        temporal smoother, whose output is written at the indices it
+        emits: the median lags one batch and ends with ``flush()``. One
+        batch in flight: a batch's maps are copied to the host
+        asynchronously and handed to the PNG writer while the next runs.
         """
         cuda = self.device.type == "cuda"
+        smoother = self._smoother()
+        want_guide = self.temporal_smooth == "flow"
         done = 0
-        pending = None  # (host maps, copy-done event, start index, valid)
+        written = 0
+        pending = None  # (host maps, copy-done event, start index, count)
         t0 = time.time()
         with DepthMapWriter(cache) as writer:
 
@@ -162,6 +220,21 @@ class StereoDepthExtractor:
                 if event is not None:
                     event.synchronize()
                 writer.put(host.numpy(), start, n_valid)
+
+            def stage(maps, start, n_valid):
+                nonlocal pending
+                event = None
+                if cuda:
+                    host = torch.empty(maps.shape, dtype=maps.dtype,
+                                       pin_memory=True)
+                    host.copy_(maps, non_blocking=True)
+                    event = torch.cuda.Event()
+                    event.record(torch.cuda.current_stream(self.device))
+                else:
+                    host = maps
+                if pending is not None:
+                    drain(pending)
+                pending = (host, event, start, n_valid)
 
             for frames, valid in batches:
                 x = torch.from_numpy(np.ascontiguousarray(frames))
@@ -173,23 +246,27 @@ class StereoDepthExtractor:
                     unsqueeze=self.unsqueeze_anamorphic,
                     normalize=self.normalize,
                     apply_speckle=self.apply_speckle,
+                    return_guide=want_guide,
+                    guide_scale=self.flow_scale,
                 )
-                event = None
-                if cuda:
-                    host = torch.empty(depth.shape, dtype=depth.dtype,
-                                       pin_memory=True)
-                    host.copy_(depth, non_blocking=True)
-                    event = torch.cuda.Event()
-                    event.record(torch.cuda.current_stream(self.device))
+                if want_guide:
+                    depth, guide = depth
+                if smoother is None:
+                    stage(depth, done, valid)
                 else:
-                    host = depth
-                if pending is not None:
-                    drain(pending)
-                pending = (host, event, done, valid)
+                    out = (smoother.push(depth[:valid], guide[:valid])
+                           if want_guide else smoother.push(depth[:valid]))
+                    if out is not None:
+                        stage(out, written, out.shape[0])
+                        written += out.shape[0]
                 done += valid
                 if done % 100 < valid:
                     dt = time.time() - t0
                     print(f"  {done} frames ({done / max(dt, 1e-9):.1f} fps)")
+            if smoother is not None:
+                out = smoother.flush()
+                if out is not None:
+                    stage(out, written, out.shape[0])
             if pending is not None:
                 drain(pending)
         return done
