@@ -7,12 +7,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
 2. builds the port's CUDA kernels from ``video3d_tpu_torch/csrc`` (nvcc,
    sm_90a) and prints the build time;
 3. holds each kernel (B1 cost volume, B2 horizontal sweeps, B3 downward
-   sweeps + WTA, B4 speckle, B5 flow warp, B6 flow match) against its
-   plain PyTorch twin on the card at the main path's shapes: two 1080p
-   frames, 1920-wide eyes, D=64; the warp at 1080x1920 with r = 16 and at
-   270x480 with r = 6, the match at 270x480. B1, B2 and B4 must be
-   bit-exact; B3 must have identical validity and disparity within 1e-5
-   (margin within rtol 1e-6); B5 within 1e-5, B6 within 2e-4 px;
+   sweeps + WTA, B4 speckle, B5 flow warp, B6 flow match, B7a/B7b
+   attention) against its plain PyTorch twin on the card at the main
+   path's shapes: two 1080p frames, 1920-wide eyes, D=64; the warp at
+   1080x1920 with r = 16 and at 270x480 with r = 6, the match at 270x480;
+   attention at DPT-large's (2, 16, 577, 64) in bf16 and f32 and at two
+   other sequence lengths. B1, B2 and B4 must be bit-exact; B3 must have
+   identical validity and disparity within 1e-5 (margin within rtol
+   1e-6); B5 within 1e-5, B6 within 2e-4 px; B7 within 1e-5 in f32 and,
+   in bf16, within 2^-7 |twin| + 2^-10 (about one bf16 ulp) on >= 99.9% of
+   the outputs;
 4. drives the stereo-only depth stage (``StereoDepthExtractor._run_batches``)
    over two batches of synthetic 1920x1080 SBS frames whose eyes differ by
    a known horizontal shift, writing PNG16 maps, and checks the launch
@@ -22,9 +26,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    batches of a panning clip, and checks the launch counts of B1-B6, the
    pass-through of frame 0, the disparity, the flow of the pan, and the
    first batch's smoothed maps against the same path run on the plain
-   twins;
+   twins; then drives the DPT hybrid (``guidance="dpt"``: DPT-large at
+   full width and depth with random bf16 weights from seed 0, keyframes
+   every 4th frame, hole fill, SSI alignment, confidence-trust blend)
+   over two batches of 8, and checks the launch counts (B7: 24 per batch,
+   one per ViT layer over the batch's two keyframes), the hole fill,
+   finite values, the median disparity and batch 0's maps against the
+   same path with every kernel (B1-B4, B7) swapped for its twin;
 5. times each kernel and twin with CUDA events, the stage's frames/s with
-   and without the flow smoother, and the smoother alone per frame.
+   and without the flow smoother and with DPT guidance at K=4 and K=1,
+   the DPT-large forward per keyframe, and the smoother alone per frame.
 
 The second-to-last line is a JSON object of the kernels, preceded by the
 card's name and power limit; the last line is
@@ -34,6 +45,7 @@ exits non-zero and prints no result. There is no CPU mode.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import shutil
 import subprocess
@@ -111,26 +123,60 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+@contextlib.contextmanager
+def twins():
+    """Swap the wrappers of B1-B4 and B7 for their plain twins, so the
+    stage's own code runs on the card with no CUDA kernel of the port."""
+    from video3d_tpu_torch.kernels import attention, costvol, sgm, speckle
+    from video3d_tpu_torch.ops.attention import attention_plain
+    from video3d_tpu_torch.ops.speckle import speckle_filter_device
+
+    swaps = (
+        (costvol, "cost_volume", costvol.cost_volume_plain),
+        (sgm, "horizontal_sweeps", sgm.horizontal_sweeps_plain),
+        (sgm, "down_sweeps_wta", sgm.down_sweeps_wta_plain),
+        (speckle, "speckle_filter", speckle_filter_device),
+        (attention, "attention_multihead",
+         lambda q, k, v, sm_scale, heads_per_step=8:
+         attention_plain(q, k, v, sm_scale)),
+    )
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    try:
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is visible")
     sys.path.insert(0, str(ROOT))
-    from video3d_tpu_torch.kernels import (_build, costvol, flowmatch, sgm,
-                                           speckle, warp)
+    from video3d_tpu_torch.kernels import (_build, attention, costvol,
+                                           flowmatch, sgm, speckle, warp)
+    from video3d_tpu_torch.models.dpt import random_dpt_guidance
+    from video3d_tpu_torch.ops.attention import attention_plain
+    from video3d_tpu_torch.ops.fill import fill_holes
     from video3d_tpu_torch.ops.flow import (FlowEMAParams, estimate_flow_fast,
                                             flow_ema_scan, flow_match_plain,
                                             warp_bilinear_shifts_plain)
-    from video3d_tpu_torch.ops.image import resize2d
+    from video3d_tpu_torch.ops.image import resize2d, rgb_to_gray
     from video3d_tpu_torch.ops.speckle import speckle_filter_device
-    from video3d_tpu_torch.ops.stereo import INVALID, SGBMParams
+    from video3d_tpu_torch.ops.stereo import (INVALID, SGBMParams,
+                                              sgbm_disparity)
     from video3d_tpu_torch.parallel.temporal import TemporalFlowEMAStream
     from video3d_tpu_torch.stages.depth import (StereoDepthExtractor,
                                                 depth_batch_pipeline,
                                                 disparity_to_uint16,
-                                                gray_pair)
+                                                gray_pair, guidance_blend,
+                                                rgb_eyes)
 
+    # f32 matmuls (resizes, the twins) stay full f32; the only convs are
+    # DPT's, whose f32 ones run at TF32, PyTorch's default (models/dpt.py)
     torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
     dev = torch.device("cuda")
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -286,6 +332,62 @@ def main() -> int:
         plain_ms=cuda_ms(lambda: flow_match_plain(cur, prev_w, fy, fx, 2, 3,
                                                   2.0), 3)))
     del img, fy, fx, got, want, cur, prev_w
+
+    # B7a (8 heads per block) and B7b (one) at DPT-large's attention shape
+    # (two keyframes, 16 heads, 577 tokens, head dim 64), in both dtypes,
+    # and at two more sequence lengths; 577 is not a multiple of the
+    # kernel's 64-key tile, nor are 130 and 1500
+    b7 = {}
+    for shape in ((2, 16, 577, 64), (1, 6, 130, 16), (1, 4, 1500, 32)):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32)).to(dev, dtype) for _ in range(3))
+            sm = 1.0 / shape[-1] ** 0.5
+            want = attention_plain(q, k, v, sm).float()
+            for name, fn in (("B7a", lambda: attention.attention_multihead(
+                                 q, k, v, sm)),
+                             ("B7b", lambda: attention.attention_oneblock(
+                                 q, k, v, sm))):
+                got = fn().float()
+                torch.cuda.synchronize()
+                err = (got - want).abs()
+                max_err = err.max().item()
+                if dtype == torch.float32:
+                    frac = float((err <= 1e-5).float().mean().item())
+                    check(max_err <= 1e-5,
+                          f"{name} f32 differs from twin at {shape}: {max_err}")
+                else:
+                    bound = 2.0 ** -7 * want.abs() + 2.0 ** -10
+                    frac = float((err <= bound).float().mean().item())
+                    check(frac >= 0.999,
+                          f"{name} bf16 vs twin at {shape}: {frac} in bound")
+                key = (name, shape, dtype)
+                b7[key] = dict(err=max_err, frac=frac)
+                if shape[2] == 577:
+                    b7[key]["ms"] = cuda_ms(fn, 20)
+                    b7[key]["plain_ms"] = cuda_ms(
+                        lambda: attention_plain(q, k, v, sm), 20)
+                print(f"{name} attention {shape} {str(dtype)[6:]}: max |err| "
+                      f"{max_err:.3e}, {frac:.6f} of outputs in bound"
+                      + (f"; {b7[key]['ms']:.4f} ms/call vs plain "
+                         f"{b7[key]['plain_ms']:.4f} on {card}"
+                         if "ms" in b7[key] else ""))
+    del q, k, v, want, got, err
+    # one kernel and one launch count: the DPT path calls B7a's entry at
+    # one head per block, B7b's setting
+    for name, label, src_line, per_block in (
+            ("B7a", "attention_multihead", 84, "8 heads per block"),
+            ("B7b", "attention_oneblock", 116,
+             "1 head per block (the DPT path's setting)")):
+        key = (name, (2, 16, 577, 64), torch.bfloat16)
+        rows.append(dict(
+            at=f"ms/call at (2, 16, 577, 64) bf16 (one ViT layer, two "
+               f"keyframes), {per_block}", name=f"{name} {label}",
+            source="video3d_tpu_torch/csrc/attention.cu",
+            replaces=f"video3d_tpu/kernels/attention.py:{src_line}",
+            max_abs_err=max(e["err"] for kk, e in b7.items()
+                            if kk[0] == name),
+            ms=b7[key]["ms"], plain_ms=b7[key]["plain_ms"]))
     torch.cuda.empty_cache()
     for r in rows:
         print(f"{r['name']}: matches its twin (max |err| {r['max_abs_err']}); "
@@ -306,7 +408,8 @@ def main() -> int:
     def counts(reset: bool = False) -> list:
         mods = ((costvol, "launches"), (sgm, "sweep_launches"),
                 (sgm, "wta_launches"), (speckle, "launches"),
-                (warp, "launches"), (flowmatch, "launches"))
+                (warp, "launches"), (flowmatch, "launches"),
+                (attention, "launches"))
         if reset:
             for mod, attr in mods:
                 setattr(mod, attr, 0)
@@ -384,10 +487,10 @@ def main() -> int:
               f"{flow_s:.3f} s "
               f"incl. first-batch warm-up and PNG writes; launches B1..B6 = "
               f"{flaunches}")
-        for r, k in zip(rows[4:], flaunches[4:]):
+        for r, k in zip(rows[4:6], flaunches[4:6]):
             r["launches"] = k
         check(n_flow == 2 * fbatch, f"wrote {n_flow} frames")
-        check(all(k > 0 for k in flaunches),
+        check(all(k > 0 for k in flaunches[:6]),
               f"a kernel never ran on the flow path: {flaunches}")
         fmaps = read_maps(fcache, n_flow)
         check_disparity(fmaps, "flow path")
@@ -431,6 +534,92 @@ def main() -> int:
         del raw, guide0, pmaps, pgl, pguide, fy, fx
         torch.cuda.empty_cache()
 
+        # -- 4c. the DPT hybrid path -----------------------------------------
+        # DPT-large at full width and depth, random bf16 weights from seed 0
+        # (no checkpoint ships with the repository)
+        t0 = time.perf_counter()
+        gfn = random_dpt_guidance(seed=0, device=dev)
+        torch.cuda.synchronize()
+        n_par = sum(t.numel() for t in gfn.module.parameters())
+        print(f"DPT-large: {n_par} parameters, "
+              f"{next(gfn.module.parameters()).dtype}, random from seed 0 in "
+              f"{time.perf_counter() - t0:.1f} s")
+        hext = StereoDepthExtractor(work_dir=str(work), guidance="dpt",
+                                    batch_size=8, device=dev)
+        hext._guidance_fn, hext._guidance_loaded = gfn, True
+        hbatches = [(sbs_frames(8, SEED + 20 + i), 8) for i in range(2)]
+        hcache = work / "depth_hybrid"
+        counts(reset=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n_hyb = hext._run_batches(hbatches, hcache)
+        torch.cuda.synchronize()
+        hyb_s = time.perf_counter() - t0
+        hlaunches = counts()
+        print(f"hybrid path: {n_hyb} frames in batches of 8, K="
+              f"{hext.guidance_every}, fill {hext.fill_holes}, blend "
+              f"{hext.blend}, {hyb_s:.3f} s incl. first-batch warm-up and PNG "
+              f"writes; launches B1..B7 = {hlaunches}")
+        check(n_hyb == 16, f"wrote {n_hyb} frames")
+        check(hlaunches[:4] == [2, 2, 2, 2] and hlaunches[4:6] == [0, 0],
+              f"hybrid path launches {hlaunches}")
+        check(hlaunches[6] == 2 * 24,
+              f"B7 launches {hlaunches[6]}, expected 24 per batch")
+        rows[6]["launches"] = rows[7]["launches"] = hlaunches[6]
+        hmaps = read_maps(hcache, n_hyb)
+
+        # batch 0 step by step on the kernels: fill, finite blend, and the
+        # same maps as the run
+        x0 = torch.from_numpy(hbatches[0][0]).to(dev)
+        left, right = rgb_eyes(x0)
+        hgl = rgb_to_gray(left).contiguous()
+        hgr = rgb_to_gray(right).contiguous()
+        disp, conf = sgbm_disparity(hgl, hgr, p, return_margin=True)
+        filled = fill_holes(disp, float(p.min_disparity - 1))
+        holes = filled == float(p.min_disparity - 1)
+        rows_valid = (disp != float(p.min_disparity - 1)).any(-1, keepdim=True)
+        n_left = int((holes & rows_valid).sum().item())
+        print(f"hybrid batch 0: {int((disp < 0).sum().item())} invalid pixels "
+              f"before the fill, {int(holes.sum().item())} after, {n_left} "
+              f"of them in rows with a valid pixel")
+        check(n_left == 0, f"{n_left} holes left in rows with a valid pixel")
+        blended = guidance_blend(filled, conf, left, right, gfn, p,
+                                 guidance_every=4)
+        check(bool(torch.isfinite(blended).all()), "hybrid blend not finite")
+        step = disparity_to_uint16(blended, p.num_disparities).cpu().to(
+            torch.int32).numpy()
+        d = np.abs(step - hmaps[:8].astype(np.int32))
+        print(f"hybrid batch 0 step by step vs the run: max |diff| "
+              f"{int(d.max())} uint16 units")
+        check(int(d.max()) <= 1, "hybrid batch 0 differs from its steps")
+        disp_px = hmaps[:8].astype(np.float64) * (p.num_disparities / 65535.0)
+        med = float(np.median(disp_px))
+        stereo = disp.cpu().numpy()
+        moved = float((np.abs(disp_px - np.clip(stereo, 0, None))[
+            stereo >= 0] > 0.25).mean())
+        print(f"hybrid batch 0: median disparity {med:.4f} px (shift "
+              f"{2 * SHIFT_EYE} px; stereo alone "
+              f"{float(np.median(stereo[stereo >= 0])):.4f}); the blend moved "
+              f"{moved:.6f} of the valid stereo pixels by more than 1/4 px")
+        check(abs(med - 2 * SHIFT_EYE) <= 0.5, f"hybrid median {med}")
+
+        # batch 0 against the same path with every kernel swapped for its
+        # twin (B1-B4 on the card; B7's twin through the same DPT)
+        with twins():
+            counts(reset=True)
+            tmaps = depth_batch_pipeline(
+                x0, guidance_fn=gfn, guidance_every=4,
+                fill_holes=True).cpu().to(torch.int32).numpy()
+            check(counts() == [0] * 7, f"twin run launched {counts()}")
+        d = np.abs(tmaps - hmaps[:8].astype(np.int32))
+        within = float((d <= 64).mean())
+        print(f"hybrid batch 0 vs the twins: {float((d == 0).mean()):.6f} of "
+              f"pixels equal, {within:.6f} within 64 uint16 units (1/16 px), "
+              f"max |diff| {int(d.max())}")
+        check(within >= 0.99, f"hybrid path vs twins: {within} within 64")
+        del x0, left, right, hgl, hgr, disp, conf, filled, holes, blended
+        torch.cuda.empty_cache()
+
         # -- 5. stage frames/s on the device (no PNG writes) ---------------
         xb = torch.from_numpy(batches[1][0]).to(dev)
         ms = cuda_ms(lambda: depth_batch_pipeline(xb), 3)
@@ -452,6 +641,30 @@ def main() -> int:
               f"time) on {card}")
         print(f"flow path incl. PNG writes: {n_flow / flow_s:.2f} frames/s on "
               f"{card}")
+
+        # the DPT hybrid: the network per keyframe, the guidance fn (with
+        # its resizes) per keyframe, and the stage at K=4 and K=1 beside
+        # stereo-only on the same batch
+        xh = torch.from_numpy(hbatches[1][0]).to(dev)
+        x384 = torch.from_numpy(rng.uniform(
+            -1, 1, (2, 384, 384, 3)).astype(np.float32)).to(dev, torch.bfloat16)
+        with torch.no_grad():
+            ms_net = cuda_ms(lambda: gfn.module(x384), 5) / 2
+        lh, _ = rgb_eyes(xh)
+        ms_gfn = cuda_ms(lambda: gfn(lh[::4]), 5) / 2
+        print(f"DPT-large forward: {ms_net:.3f} ms per keyframe (batch of 2 at "
+              f"384x384, bf16); guidance fn incl. resizes {ms_gfn:.3f} ms per "
+              f"keyframe on {card}")
+        ms_stereo = cuda_ms(lambda: depth_batch_pipeline(xh), 3)
+        for kev in (4, 1):
+            ms_h = cuda_ms(lambda: depth_batch_pipeline(
+                xh, guidance_fn=gfn, guidance_every=kev, fill_holes=True), 3)
+            print(f"hybrid stage K={kev}: {ms_h:.3f} ms per batch of 8 = "
+                  f"{8000.0 / ms_h:.2f} frames/s (stereo-only on the same "
+                  f"batch {8000.0 / ms_stereo:.2f}; device time) on {card}")
+        print(f"hybrid path incl. PNG writes: {n_hyb / hyb_s:.2f} frames/s on "
+              f"{card}")
+        del xh, x384, lh
 
         # the smoother alone, shaped as the JAX package's bench_smooth: T=8
         # uint16 1080p depth, 270x480 guide, one scan from frame 0

@@ -51,6 +51,10 @@ def test_port_is_jax_free_and_params_pinned():
         "video3d_tpu_torch.parallel.temporal\n"
         "import video3d_tpu_torch.kernels.warp, "
         "video3d_tpu_torch.kernels.flowmatch\n"
+        "import video3d_tpu_torch.models.dpt, video3d_tpu_torch.models.mono, "
+        "video3d_tpu_torch.models.guidance\n"
+        "import video3d_tpu_torch.ops.fill, video3d_tpu_torch.ops.attention, "
+        "video3d_tpu_torch.kernels.attention\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "print('ok')\n"
     )
@@ -186,7 +190,7 @@ def test_cli_stereo_only_and_unported_flags(tmp_path, capsys):
 
     video = tmp_path / "sbs.mp4"
     make_test_video(video, n_frames=3, width=64, height=24)
-    assert main([str(video), "--fill-holes", "--stereo-only",
+    assert main([str(video), "--auto-range", "--stereo-only",
                  "--device", "cpu"]) == 2
     assert main([str(video), "--device", "cpu"]) == 2  # CREStereo default
     assert "not yet ported" in capsys.readouterr().err

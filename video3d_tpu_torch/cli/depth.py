@@ -1,12 +1,13 @@
 """CLI: stereo depth extraction on the PyTorch port.
 
 ``python -m video3d_tpu_torch.cli.depth <sbs.mp4> --stereo-only
---work-dir WD --max-frames N``. Accepts the JAX CLI's flags
+--work-dir WD --max-frames N``, or ``--guidance dpt --model <HF
+safetensors dir>`` for the DPT hybrid. Accepts the JAX CLI's flags
 (``video3d_tpu.cli.depth``); those of features not yet ported exit with
-"not yet ported" instead of being ignored. Without ``--stereo-only`` the
-JAX default is the CREStereo hybrid, which is not yet ported either.
-``--device`` defaults to ``cuda``; ``--device cpu`` is the only way onto
-the CPU (the kernels' plain twins).
+"not yet ported" instead of being ignored. Without ``--stereo-only`` or
+``--guidance`` the JAX default is the CREStereo hybrid, which is not yet
+ported either. ``--device`` defaults to ``cuda``; ``--device cpu`` is the
+only way onto the CPU (the kernels' plain twins).
 """
 
 from __future__ import annotations
@@ -16,10 +17,9 @@ import sys
 
 # flags of the JAX CLI whose features the port does not have yet
 _NOT_PORTED = (
-    "model", "fill_holes", "auto_range", "range_sample_frames",
-    "auto_range_shots", "shot_threshold", "guidance_weight", "blend",
-    "trust_scale", "guidance_every", "multihost", "coordinator",
-    "num_processes", "process_id", "profile_dir",
+    "auto_range", "range_sample_frames", "auto_range_shots",
+    "shot_threshold", "multihost", "coordinator", "num_processes",
+    "process_id", "profile_dir",
 )
 
 
@@ -27,7 +27,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="video-3d-depth-torch",
         description="Extract depth maps from a side-by-side 3D video "
-                    "(PyTorch + CUDA port, stereo-only)",
+                    "(PyTorch + CUDA port)",
     )
     p.add_argument("video", help="SBS stereoscopic video")
     p.add_argument("--work-dir", default="temp_depth")
@@ -40,17 +40,37 @@ def build_parser() -> argparse.ArgumentParser:
                         "twins of the kernels)")
     p.add_argument("--guidance", default=None,
                    choices=["none", "dpt", "crestereo", "mono"],
-                   help="Only 'none' is ported")
+                   help="Guidance backend; 'none' and 'dpt' are ported")
     p.add_argument("--stereo-only", action="store_true",
                    help="Disable neural guidance (reference depth.py:507)")
     p.add_argument("--no-neural", action="store_true",
                    help="Alias of --stereo-only")
+    p.add_argument("--model", default="Intel/dpt-large",
+                   help="Guidance checkpoint: a local HF DPT directory with "
+                        "*.safetensors (none ships; a failed load falls "
+                        "back to stereo-only)")
     p.add_argument("--no-unsqueeze", action="store_true",
                    help="Skip the 2x anamorphic unsqueeze")
     p.add_argument("--per-frame-normalize", action="store_true",
                    help="Per-frame min-max normalisation (reference parity)")
     p.add_argument("--no-speckle", action="store_true",
                    help="Skip speckle filtering")
+    p.add_argument("--fill-holes", action=argparse.BooleanOptionalAction,
+                   default=None,
+                   help="Background-extension fill of invalid pixels before "
+                        "any guidance blend. Default: on with guidance, off "
+                        "for stereo-only")
+    p.add_argument("--guidance-weight", type=float, default=0.7,
+                   help="Stereo weight of the fixed guidance blend")
+    p.add_argument("--blend", default="confidence",
+                   choices=("confidence", "fixed"),
+                   help="Guidance mixing: 'confidence' (per-pixel, trust "
+                        "gated) or 'fixed' (0.7/0.3)")
+    p.add_argument("--trust-scale", type=int, default=1, choices=[1, 2, 4],
+                   help="Resolution divisor of the guidance trust field")
+    p.add_argument("--guidance-every", type=int, default=4,
+                   help="Run the guidance on every Kth frame of a batch and "
+                        "reuse it in between")
     p.add_argument("--temporal-smooth", default=None,
                    choices=("none", "median", "flow"),
                    help="Temporal depth filtering: 'median' = median-of-3, "
@@ -66,8 +86,6 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument("--" + name.replace("_", "-"), dest=name,
                        nargs="?", const=True, default=None,
                        help=argparse.SUPPRESS)
-    p.add_argument("--no-fill-holes", dest="fill_holes", action="store_const",
-                   const=False, help=argparse.SUPPRESS)
     return p
 
 
@@ -84,9 +102,9 @@ def main(argv=None) -> int:
         guidance = "none"
     else:
         guidance = "crestereo"  # the JAX CLI's default
-    if guidance != "none":
-        print(f"not yet ported: guidance {guidance!r} (use --stereo-only)",
-              file=sys.stderr)
+    if guidance not in ("none", "dpt"):
+        print(f"not yet ported: guidance {guidance!r} (use --stereo-only "
+              f"or --guidance dpt)", file=sys.stderr)
         return 2
 
     from video3d_tpu_torch.stages.depth import StereoDepthExtractor
@@ -95,12 +113,18 @@ def main(argv=None) -> int:
         work_dir=args.work_dir,
         batch_size=args.batch_size,
         guidance=guidance,
+        model_checkpoint=args.model,
         unsqueeze_anamorphic=not args.no_unsqueeze,
         normalize="per_frame" if args.per_frame_normalize else "fixed",
         apply_speckle=not args.no_speckle,
         temporal_median=args.temporal_median,
         temporal_smooth=args.temporal_smooth,
         flow_scale=args.flow_scale,
+        stereo_weight=args.guidance_weight,
+        blend=args.blend,
+        fill_holes=args.fill_holes,
+        guidance_every=args.guidance_every,
+        trust_scale=args.trust_scale,
         device=args.device,
     )
     cache = extractor.process_video_sbs(

@@ -21,8 +21,10 @@ Every TPU kernel of the JAX package (each function reaching
  B4   kernels/speckle.py:159 speckle_filter_pallas            csrc/speckle.cu, kernels/speckle.py
  B5   kernels/warp.py:91 warp_bilinear_shifts_pallas          csrc/warp.cu, kernels/warp.py
  B6   kernels/flowmatch.py:122 flow_match_pallas              csrc/flowmatch.cu, kernels/flowmatch.py
- B7a  kernels/attention.py:84 attention_multihead             still to port (DPT)
- B7b  kernels/attention.py:116 attention_oneblock             still to port (DPT)
+ B7a  kernels/attention.py:84 attention_multihead             csrc/attention.cu, kernels/attention.py
+ B7b  kernels/attention.py:116 attention_oneblock             csrc/attention.cu, kernels/attention.py
+                                                              (one kernel template at 8 and 1
+                                                              heads per block; one launch count)
  B8a  kernels/sgm.py:119 _directional_pass                    still to port ((B,H,W,D) sweeps)
  B8b  kernels/sgm.py:254,279 transpose_to/from_wmajor         still to port (transposes)
  B8c  kernels/sgm.py:391 _directional_pass_wmajor             still to port (W-major sweeps)

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 At first use, ``nvcc`` compiles every ``video3d_tpu_torch/csrc/*.cu`` for
-``sm_90a`` into one shared library with a plain C interface, which is
+``sm_90a``, one process per source, all started together, and links the
+objects into one shared library with a plain C interface, which is
 loaded with ``ctypes``. The library lands in ``build/kernels/`` at the
 root of the checkout (listed in ``.gitignore``), named by a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one is
@@ -31,7 +32,7 @@ _BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 ]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -50,6 +51,8 @@ _SIGNATURES = {
     "v3d_warp": [_P, _P, _P, _P, _I, _I, _I, _P],
     # flowmatch.cu
     "v3d_flow_match": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # attention.cu
+    "v3d_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
 }
 
 _lib = None
@@ -87,13 +90,34 @@ def build() -> Path:
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+    objs, procs = [], []
+    for src in (p for p in _sources() if p.suffix == ".cu"):
+        obj = out.with_name(f"{out.stem}.{src.stem}.{os.getpid()}.o")
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    try:
+        failed = []
+        for proc in procs:
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(proc.args)} ({proc.returncode}):"
+                              f"\n{stdout}\n{stderr}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        res = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                              *map(str, objs)],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({res.returncode}):\n{res.stdout}\n"
+                f"{res.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)
     build_seconds = time.perf_counter() - t0
     return out

@@ -1,17 +1,23 @@
-"""Stereo-only depth extraction stage (counterpart of video3d_tpu.stages.depth).
+"""Stereo depth extraction stage (counterpart of video3d_tpu.stages.depth).
 
 Per batch, on one device: SBS split, 2x Lanczos-4 unsqueeze, BT.601 gray,
 the semi-global matcher (:func:`video3d_tpu_torch.ops.stereo.
-sgbm_disparity`, whose four kernels run on a CUDA device), clamp of
-invalid pixels to 0, fixed-range or per-frame normalisation, uint16 out.
-Host I/O -- decode, PNG16 writing, cache keys -- is the JAX package's
+sgbm_disparity`, whose four kernels run on a CUDA device), the optional
+background-extension hole fill, the optional neural guidance blend, clamp
+of invalid pixels to 0, fixed-range or per-frame normalisation, uint16
+out. Host I/O -- decode, PNG16 writing, cache keys -- is the JAX package's
 JAX-free ``video3d_tpu.core``.
+
+Guidance (``guidance='dpt'``): DPT-large monocular depth
+(:mod:`video3d_tpu_torch.models.dpt`, attention kernel B7) on every Kth
+frame of a batch, min-max normalised, SSI-aligned onto the confident
+stereo and mixed by :func:`confidence_trust_blend` (or the fixed 0.7/0.3
+blend). The CREStereo and mono backends are not yet ported.
 
 Temporal smoothing (``temporal_smooth``): ``median`` runs the median-of-3
 along the frame axis, ``flow`` the flow-guided EMA on a 1/``flow_scale``
 gray guide of the left eye (:mod:`video3d_tpu_torch.parallel.temporal`,
-kernels B5 and B6). Only ``guidance='none'`` is ported; neural guidance,
-hole fill and the sharded/fan-out variants are not yet.
+kernels B5 and B6). The sharded/fan-out variants are not yet ported.
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ from __future__ import annotations
 import dataclasses
 import time
 from pathlib import Path
-from typing import Iterable, Optional
+from typing import Callable, Iterable, Optional
 
 import numpy as np
 import torch
@@ -27,6 +33,9 @@ import torch
 from video3d_tpu.core import DepthMapWriter, VideoReader, get_video_info
 from video3d_tpu.core.cache import (create_work_directory, depth_cache_dir,
                                     is_depth_cached_range)
+from video3d_tpu_torch.models.mono import ssi_align
+from video3d_tpu_torch.ops.boxsum import box_sum_2d
+from video3d_tpu_torch.ops.fill import fill_holes as fill_holes_op
 from video3d_tpu_torch.ops.flow import FlowEMAParams
 from video3d_tpu_torch.ops.image import (resize2d, rgb_to_gray, split_sbs,
                                          unsqueeze_width)
@@ -39,10 +48,13 @@ from video3d_tpu_torch.parallel.temporal import (TemporalFlowEMAStream,
 ALGO_VERSION = 2
 BACKEND = "torch"
 
+# Guidance blend weight of the stereo map (reference depth.py:358-363).
+STEREO_WEIGHT = 0.7
 
-def gray_pair(frames: torch.Tensor, unsqueeze: bool = True):
-    """uint8 SBS RGB batch (B, H, W, 3) -> contiguous f32 gray eyes
-    (B, H, W') each: split, optional 2x Lanczos-4 unsqueeze, BT.601."""
+
+def rgb_eyes(frames: torch.Tensor, unsqueeze: bool = True):
+    """uint8 SBS RGB batch (B, H, W, 3) -> f32 RGB eyes (B, H, W', 3):
+    split and optional 2x Lanczos-4 unsqueeze of each channel."""
     left, right = split_sbs(frames)
     left = left.to(torch.float32)
     right = right.to(torch.float32)
@@ -50,7 +62,117 @@ def gray_pair(frames: torch.Tensor, unsqueeze: bool = True):
         # resample each RGB channel's width: (B, H, W/2, 3) -> (B, H, W, 3)
         left = unsqueeze_width(left.movedim(-1, 1)).movedim(1, -1)
         right = unsqueeze_width(right.movedim(-1, 1)).movedim(1, -1)
+    return left, right
+
+
+def gray_pair(frames: torch.Tensor, unsqueeze: bool = True):
+    """uint8 SBS RGB batch (B, H, W, 3) -> contiguous f32 gray eyes
+    (B, H, W') each: :func:`rgb_eyes`, then BT.601."""
+    left, right = rgb_eyes(frames, unsqueeze)
     return rgb_to_gray(left).contiguous(), rgb_to_gray(right).contiguous()
+
+
+def confidence_trust_blend(disp: torch.Tensor, margin: torch.Tensor,
+                           guide: torch.Tensor, *,
+                           min_disparity: float = 0.0,
+                           trust_scale: int = 1) -> torch.Tensor:
+    """Confidence-weighted stereo/guidance mixing (JAX
+    ``confidence_trust_blend``), (B, H, W) each.
+
+    The stereo weight per pixel is the texture-gated uniqueness margin;
+    low-confidence pixels go to the guide only where the guide agrees
+    (within 2 px) with the nearby confident stereo: a local trust ratio
+    of agreeing to confident mass in an r = 8 box, falling back to the
+    frame's ratio where the box holds under 2% confident mass, and to
+    full trust where the frame holds under 32. ``trust_scale`` in {1, 2, 4}
+    computes the trust field on an s-pooled grid (box r/s) and expands
+    the ratio bilinearly.
+    """
+    conf = torch.where(disp > min_disparity - 0.5, margin, 0.0)
+    stereo_pos = torch.clamp(disp, min=0.0)
+    agree = torch.where((guide - stereo_pos).abs() <= 2.0, conf, 0.0)
+    dims = (-2, -1)
+    conf_mass = conf.sum(dim=dims, keepdim=True)
+    q_frame = torch.where(
+        conf_mass >= 32.0,  # else: nothing to judge -> trust
+        agree.sum(dim=dims, keepdim=True) / torch.clamp(conf_mass, min=1e-6),
+        1.0)
+    r_t = 8
+    if trust_scale > 1:
+        s = int(trust_scale)
+        bb, hh, ww = agree.shape
+        hq, wq = hh // s, ww // s
+
+        def pool(a):
+            return a[:, :hq * s, :wq * s].reshape(bb, hq, s, wq,
+                                                  s).sum(dim=(2, 4))
+
+        r = max(1, r_t // s)
+        num = box_sum_2d(pool(agree), r)
+        den = box_sum_2d(pool(conf), r)
+        area = box_sum_2d(torch.full((bb, hq, wq), float(s * s),
+                                     device=conf.device), r)
+        trust_q = torch.where(den > 0.02 * area,
+                              num / torch.clamp(den, min=1e-6), q_frame)
+        trust = resize2d(trust_q, hh, ww, method="bilinear")
+    else:
+        num = box_sum_2d(agree, r_t)
+        den = box_sum_2d(conf, r_t)
+        area = box_sum_2d(torch.ones_like(conf), r_t)
+        trust = torch.where(den > 0.02 * area,
+                            num / torch.clamp(den, min=1e-6), q_frame)
+    conf = 1.0 - (1.0 - conf) * torch.clamp(trust, 0.0, 1.0)
+    return conf * stereo_pos + (1.0 - conf) * guide
+
+
+def guidance_blend(disp: torch.Tensor, margin: Optional[torch.Tensor],
+                   left: torch.Tensor, right: torch.Tensor,
+                   guidance_fn: Callable, params: SGBMParams,
+                   guidance_every: int = 1,
+                   stereo_weight: float = STEREO_WEIGHT,
+                   blend: str = "confidence",
+                   trust_scale: int = 1) -> torch.Tensor:
+    """Mix the stereo disparity (B, H, W') with the guidance backend's
+    output on the RGB eyes (B, H, W', 3) f32.
+
+    Keyframe guidance: the backend runs on every ``guidance_every``-th
+    frame of the batch (``x[::K]``) and each output serves the K frames
+    from its own on; the cadence restarts at each batch. Stereo guidance
+    (``fn.stereo``) is disparity already; mono output is min-max
+    normalised to [0, num_disparities] and, with ``blend='confidence'``,
+    SSI-aligned onto the confident stereo (kept where the fit has s > 0).
+    ``confidence`` mixes by :func:`confidence_trust_blend` (``margin`` is
+    the matcher's confidence); ``fixed`` is
+    ``stereo_weight * disp + (1 - stereo_weight) * guide``.
+    """
+    kev = max(1, int(guidance_every))
+    b = left.shape[0]
+
+    def run(*eyes):
+        out = guidance_fn(*(e[::kev] for e in eyes))
+        return out.repeat_interleave(kev, dim=0)[:b] if kev > 1 else out
+
+    if getattr(guidance_fn, "stereo", False):
+        guide = run(left, right)
+    else:
+        mono = run(left)
+        dims = (-2, -1)
+        mmin = mono.amin(dim=dims, keepdim=True)
+        mmax = mono.amax(dim=dims, keepdim=True)
+        guide = ((mono - mmin) / torch.clamp(mmax - mmin, min=1e-6)
+                 * float(params.num_disparities))
+        if blend == "confidence":
+            conf_w = torch.where(disp > float(params.min_disparity) - 0.5,
+                                 margin, 0.0)
+            s, t = ssi_align(mono, torch.clamp(disp, min=0.0), conf_w)
+            g_ssi = torch.clamp(mono * s + t, 0.0,
+                                float(params.num_disparities))
+            guide = torch.where(s > 0.0, g_ssi, guide)
+    if blend == "confidence":
+        return confidence_trust_blend(
+            disp, margin, guide, min_disparity=float(params.min_disparity),
+            trust_scale=trust_scale)
+    return stereo_weight * disp + (1.0 - stereo_weight) * guide
 
 
 def disparity_to_uint16(disp: torch.Tensor, num_disparities: int,
@@ -76,6 +198,12 @@ def depth_batch_pipeline(
     apply_speckle: bool = True,
     return_guide: bool = False,
     guide_scale: int = 4,
+    guidance_fn: Optional[Callable] = None,
+    guidance_every: int = 1,
+    stereo_weight: float = STEREO_WEIGHT,
+    blend: str = "confidence",
+    fill_holes: bool = False,
+    trust_scale: int = 1,
 ):
     """uint8 SBS RGB batch (B, H, W, 3) -> uint16 depth batch (B, H, W').
 
@@ -83,9 +211,29 @@ def depth_batch_pipeline(
     ``return_guide``: also return the bilinear 1/``guide_scale`` gray of
     the left eye, (B, ceil(H/s), ceil(W'/s)) f32 -- the motion guide of
     the flow smoother.
+
+    ``fill_holes``: background-extension fill of invalid pixels before
+    any blend. ``guidance_fn``: maps the f32 RGB left eye (B, H, W', 3) in
+    [0, 255] (and the right eye when ``guidance_fn.stereo``) to relative
+    depth (B, H, W'), mixed in by :func:`guidance_blend` with
+    ``guidance_every``, ``stereo_weight``, ``blend`` (confidence|fixed)
+    and ``trust_scale``.
     """
-    gl, gr = gray_pair(frames, unsqueeze)
-    disp = sgbm_disparity(gl, gr, params, apply_speckle=apply_speckle)
+    left, right = rgb_eyes(frames, unsqueeze)
+    gl, gr = rgb_to_gray(left).contiguous(), rgb_to_gray(right).contiguous()
+    want_margin = guidance_fn is not None and blend == "confidence"
+    res = sgbm_disparity(gl, gr, params, apply_speckle=apply_speckle,
+                         return_margin=want_margin)
+    disp, margin = res if want_margin else (res, None)
+    if fill_holes:
+        # before the blend: the margin at former holes stays ~0, so the
+        # guidance still owns them
+        disp = fill_holes_op(disp, float(params.min_disparity - 1))
+    if guidance_fn is not None:
+        disp = guidance_blend(disp, margin, left, right, guidance_fn, params,
+                              guidance_every=guidance_every,
+                              stereo_weight=stereo_weight, blend=blend,
+                              trust_scale=trust_scale)
     out = disparity_to_uint16(disp, params.num_disparities, normalize)
     if return_guide:
         h, w = gl.shape[-2], gl.shape[-1]
@@ -95,35 +243,52 @@ def depth_batch_pipeline(
 
 
 class StereoDepthExtractor:
-    """Stereo depth from SBS video on a torch device (stereo-only)."""
+    """Stereo depth from SBS video on a torch device, with optional DPT
+    guidance."""
 
     def __init__(
         self,
         work_dir: str = "temp_depth",
         batch_size: Optional[int] = None,
         guidance: str = "none",
+        model_checkpoint: str = "Intel/dpt-large",
         unsqueeze_anamorphic: bool = True,
         normalize: str = "fixed",
         apply_speckle: bool = True,
         temporal_median: bool = False,
         temporal_smooth: Optional[str] = None,
         flow_scale: int = 4,
+        stereo_weight: float = STEREO_WEIGHT,
+        blend: str = "confidence",
+        fill_holes: Optional[bool] = None,
+        guidance_every: int = 4,
+        trust_scale: int = 1,
         params: SGBMParams = SGBMParams(),
         device=None,
     ):
         """``device`` None means ``cuda``, which must be available; the
         plain twins run only when ``device="cpu"`` is asked for.
         ``temporal_smooth``: none|median|flow (``temporal_median=True``
-        spells median); ``flow_scale`` 2 or 4 is the guide's reduction."""
-        if guidance not in ("none", "stereo_only"):
+        spells median); ``flow_scale`` 2 or 4 is the guide's reduction.
+        ``guidance``: none|stereo_only|dpt, ``model_checkpoint`` the local
+        DPT checkpoint (an HF safetensors directory); a guidance model
+        that fails to load falls back to stereo-only with a warning.
+        ``guidance_every`` K runs the guidance on every Kth frame (K=4,
+        the JAX default), ``blend`` confidence|fixed (``stereo_weight`` is
+        the fixed blend's), ``trust_scale`` 1|2|4, ``fill_holes`` None =
+        on exactly when guidance is active."""
+        if guidance in ("crestereo", "mono"):
             raise NotImplementedError(
-                f"guidance={guidance!r} is not yet ported (stereo-only)")
+                f"guidance={guidance!r} is not yet ported (none|dpt)")
+        if guidance not in ("none", "stereo_only", "dpt"):
+            raise ValueError(f"Unknown guidance backend: {guidance}")
         if normalize not in ("fixed", "per_frame"):
             raise ValueError(f"normalize must be fixed|per_frame: {normalize}")
         self.work_dir = create_work_directory(work_dir)
         self.batch_size = batch_size
         self.guidance = guidance
-        self.model_checkpoint = "stereo_only"
+        self.model_checkpoint = (model_checkpoint if guidance == "dpt"
+                                 else "stereo_only")
         self.unsqueeze_anamorphic = bool(unsqueeze_anamorphic)
         self.normalize = normalize
         self.apply_speckle = bool(apply_speckle)
@@ -136,12 +301,63 @@ class StereoDepthExtractor:
         if flow_scale not in (2, 4):
             raise ValueError(f"flow_scale must be 2 or 4: {flow_scale}")
         self.flow_scale = int(flow_scale)
+        self.stereo_weight = float(stereo_weight)
+        if blend not in ("confidence", "fixed"):
+            raise ValueError(f"blend must be confidence|fixed: {blend}")
+        self.blend = blend
+        self.fill_holes = fill_holes
+        if guidance_every < 1:
+            raise ValueError(f"guidance_every must be >= 1: {guidance_every}")
+        self.guidance_every = int(guidance_every)
+        if trust_scale not in (1, 2, 4):
+            raise ValueError(f"trust_scale must be 1, 2 or 4: {trust_scale}")
+        self.trust_scale = int(trust_scale)
         self.params = params
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "StereoDepthExtractor: CUDA is not available; pass "
                 "device=\"cpu\" (CLI: --device cpu) to run the plain twins")
+        self._guidance_fn: Optional[Callable] = None
+        self._guidance_loaded = False
+
+    @property
+    def fill_holes(self) -> bool:
+        """Background-extension hole fill, AUTO by default: on whenever a
+        guidance model is active, off for stereo-only (holes ship as 0,
+        reference depth.py:374). Explicit True/False overrides; a
+        guidance load that falls back to stereo-only also turns the auto
+        fill off."""
+        if self._fill_holes_opt is not None:
+            return self._fill_holes_opt
+        return self.guidance not in ("none", "stereo_only")
+
+    @fill_holes.setter
+    def fill_holes(self, v) -> None:
+        self._fill_holes_opt = None if v is None else bool(v)
+
+    def load_model(self) -> None:
+        """Resolve the guidance backend once (reference depth.py:60-114).
+
+        A failure degrades to stereo-only with a warning, the reference's
+        soft-fallback contract (depth.py:107-114).
+        """
+        if self._guidance_loaded:
+            return
+        self._guidance_loaded = True
+        if self.guidance in ("none", "stereo_only"):
+            return
+        try:
+            from video3d_tpu_torch.models.dpt import load_dpt_guidance
+
+            self._guidance_fn = load_dpt_guidance(self.model_checkpoint,
+                                                  device=self.device)
+            print(f"Guidance model loaded: {self.guidance}")
+        except Exception as e:  # noqa: BLE001 -- degrade like the reference
+            print(f"Warning: guidance load failed ({e}); using stereo only")
+            self.guidance = "none"
+            self.model_checkpoint = "stereo_only"
+            self._guidance_fn = None
 
     def _auto_batch_size(self, height: int, width: int) -> int:
         """Frames per batch from free device memory.
@@ -163,7 +379,9 @@ class StereoDepthExtractor:
 
     def _model_key(self) -> str:
         """Cache-key component covering every output-affecting option,
-        tagged with the backend so port and JAX maps never alias."""
+        tagged with the backend so port and JAX maps never alias. The
+        guidance tags read the resolved guidance: call it after
+        :meth:`load_model`."""
         key = f"{self.model_checkpoint}+a{ALGO_VERSION}"
         if self.normalize != "fixed":
             key += f"+norm={self.normalize}"
@@ -175,6 +393,15 @@ class StereoDepthExtractor:
                 key += f"@{self.flow_scale}"
         if not self.apply_speckle:
             key += "+nospeckle"
+        guided = self.guidance not in ("none", "stereo_only")
+        if self.stereo_weight != STEREO_WEIGHT:
+            key += f"+sw={self.stereo_weight:g}"
+        if guided and self.blend == "confidence":
+            key += "+blend=conf"
+        if self.fill_holes:
+            key += "+fill"
+        if guided and self.guidance_every != 1:
+            key += f"+gev{self.guidance_every}"
         default = SGBMParams()
         if self.params != default:
             diff = ",".join(
@@ -205,7 +432,9 @@ class StereoDepthExtractor:
         emits: the median lags one batch and ends with ``flush()``. One
         batch in flight: a batch's maps are copied to the host
         asynchronously and handed to the PNG writer while the next runs.
+        The guidance model is resolved first (:meth:`load_model`).
         """
+        self.load_model()
         cuda = self.device.type == "cuda"
         smoother = self._smoother()
         want_guide = self.temporal_smooth == "flow"
@@ -248,6 +477,12 @@ class StereoDepthExtractor:
                     apply_speckle=self.apply_speckle,
                     return_guide=want_guide,
                     guide_scale=self.flow_scale,
+                    guidance_fn=self._guidance_fn,
+                    guidance_every=self.guidance_every,
+                    stereo_weight=self.stereo_weight,
+                    blend=self.blend,
+                    fill_holes=self.fill_holes,
+                    trust_scale=self.trust_scale,
                 )
                 if want_guide:
                     depth, guide = depth
@@ -281,6 +516,9 @@ class StereoDepthExtractor:
         """Extract depth maps for a frame range; returns the cache dir.
 
         Idempotent: a complete cache is returned as it is unless ``force``.
+        The guidance is resolved before the cache key is made, so a
+        guidance load that falls back to stereo-only never writes under
+        the hybrid key (the JAX stage keys first: ROADMAP C2).
         """
         info = get_video_info(str(video_path))
         if info is None:
@@ -291,6 +529,7 @@ class StereoDepthExtractor:
             if (n_total is not None and max_frames is not None)
             else (max_frames if max_frames is not None else n_total)
         )
+        self.load_model()
         cache = depth_cache_dir(
             self.work_dir, str(video_path), start_frame,
             n_frames if n_frames is not None else "all",
@@ -304,7 +543,7 @@ class StereoDepthExtractor:
             info["height"], info["width"])
         print(f"Extracting depth: "
               f"{n_frames if n_frames is not None else '?'} frames, "
-              f"batch={batch}, device={self.device}")
+              f"batch={batch}, guidance={self.guidance}, device={self.device}")
         reader = VideoReader(str(video_path), start_frame=start_frame,
                              max_frames=n_frames, batch_size=batch)
         t0 = time.time()
