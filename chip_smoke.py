@@ -6,36 +6,47 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    TF32 flags, PNG writers available);
 2. builds the port's CUDA kernels from ``video3d_tpu_torch/csrc`` (nvcc,
    sm_90a) and prints the build time;
-3. holds each kernel (B1 cost volume, B2 horizontal sweeps, B3 downward
-   sweeps + WTA, B4 speckle, B5 flow warp, B6 flow match, B7a/B7b
-   attention) against its plain PyTorch twin on the card at the main
-   path's shapes: two 1080p frames, 1920-wide eyes, D=64; the warp at
-   1080x1920 with r = 16 and at 270x480 with r = 6, the match at 270x480;
-   attention at DPT-large's (2, 16, 577, 64) in bf16 and f32 and at two
-   other sequence lengths. B1, B2 and B4 must be bit-exact; B3 must have
-   identical validity and disparity within 1e-5 (margin within rtol
-   1e-6); B5 within 1e-5, B6 within 2e-4 px; B7 within 1e-5 in f32 and,
-   in bf16, within 2^-7 |twin| + 2^-10 (about one bf16 ulp) on >= 99.9% of
-   the outputs;
-4. drives the stereo-only depth stage (``StereoDepthExtractor._run_batches``)
-   over two batches of synthetic 1920x1080 SBS frames whose eyes differ by
-   a known horizontal shift, writing PNG16 maps, and checks the launch
-   counts, the valid fraction, the median disparity and one batch's maps
-   against the plain path on the card; then drives the same stage with
-   the flow-guided temporal smoother (``temporal_smooth="flow"``) over two
-   batches of a panning clip, and checks the launch counts of B1-B6, the
-   pass-through of frame 0, the disparity, the flow of the pan, and the
-   first batch's smoothed maps against the same path run on the plain
-   twins; then drives the DPT hybrid (``guidance="dpt"``: DPT-large at
-   full width and depth with random bf16 weights from seed 0, keyframes
-   every 4th frame, hole fill, SSI alignment, confidence-trust blend)
-   over two batches of 8, and checks the launch counts (B7: 24 per batch,
-   one per ViT layer over the batch's two keyframes), the hole fill,
-   finite values, the median disparity and batch 0's maps against the
-   same path with every kernel (B1-B4, B7) swapped for its twin;
-5. times each kernel and twin with CUDA events, the stage's frames/s with
-   and without the flow smoother and with DPT guidance at K=4 and K=1,
-   the DPT-large forward per keyframe, and the smoother alone per frame.
+3. holds each kernel against its plain PyTorch twin on the card at the
+   main path's shapes: B1 cost volume (which is also B1-i16, the TPU's
+   native-int16 variant), B2 horizontal sweeps, B3 vertical sweeps + WTA
+   and B4 speckle at two 1080p frames, 1920-wide eyes, D=64, for MODE_SGBM
+   (5 paths, int16 accumulator) and B2/B3 again for MODE_HH (8 paths, f32
+   accumulator, bottom-up close); B8a (``sgm_aggregate_pallas``, 8 paths)
+   on f32 and bf16 cost, B8c (W-major sweeps) forward and reverse, and the
+   B8b round trip (equal to the input and to ``permute().contiguous()``)
+   at the same shape; the six int16 probe ops (P); B5 flow warp at
+   1080x1920 with r = 16 and at 270x480 with r = 6, B6 flow match at
+   270x480; B7a/B7b attention at DPT-large's (2, 16, 577, 64) in bf16 and
+   f32 and at two other sequence lengths. B1, B2, B4, B8a, B8b, B8c and P
+   must be bit-exact; B3 must have identical validity and disparity within
+   1e-5 (margin within rtol 1e-6); B5 within 1e-5, B6 within 2e-4 px; B7
+   within 1e-5 in f32 and, in bf16, within 2^-7 |twin| + 2^-10 (about one
+   bf16 ulp) on >= 99.9% of the outputs. Each kernel's time (CUDA events)
+   is printed beside its twin's, its bound (the larger of the bytes it
+   must move over 3.35 TB/s and its operations over the unit's peak) and,
+   where one PyTorch call computes the same function, that call's time
+   (SDPA for B7, ``permute().contiguous()`` for B8b);
+4. drives each path through the entry points a user calls, with every
+   launch count set to 0 just before and read just after, and fails if a
+   kernel of the path never ran: the stereo-only depth stage
+   (``StereoDepthExtractor._run_batches``) over two batches of synthetic
+   1920x1080 SBS frames whose eyes differ by a known horizontal shift,
+   writing PNG16 maps (launch counts, valid fraction, median disparity,
+   one batch's maps against the plain path); the same stage with the
+   flow-guided temporal smoother over a panning clip (B1-B6, the
+   pass-through of frame 0, the flow of the pan, batch 0 against the
+   twins); the DPT hybrid (DPT-large at full width and depth with random
+   bf16 weights from seed 0, keyframes every 4th frame, hole fill, SSI
+   alignment, confidence-trust blend; 24 B7 launches per batch, the fill,
+   finite values, the median, batch 0 against the all-twin path); MODE_HH
+   (``params=SGBMParams(num_paths=8)``) over two batches of 8 (median,
+   valid fraction, batch 0 against the all-twin path); both W-major
+   horizontal routes (``horizontal_route`` xla and mxu) on one batch of 8
+   at 5 and 8 paths, bit-equal to the legacy route; B8a through the public
+   ``sgm_aggregate_pallas``; and the int16 probe's own run;
+5. times the stage's frames/s with and without the flow smoother, with
+   DPT guidance at K=4 and K=1, in MODE_HH and on each route, the DPT-large
+   forward per keyframe, and the smoother alone per frame.
 
 The second-to-last line is a JSON object of the kernels, preceded by the
 card's name and power limit; the last line is
@@ -62,6 +73,12 @@ B, H, W_SBS, D = 2, 1080, 1920, 64
 SHIFT_EYE = 8  # eye pixels; 16 px disparity after the 2x unsqueeze
 PAN_EYE = 2  # eye pixels per frame of the panning clip: 1 px at the 1/4 guide
 SEED = 0
+HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate
+# peak operations/s by unit: f32 (and int32) on the CUDA cores, bf16 on
+# the tensor cores (dense), from the H100 SXM data sheet at 700 W
+PEAK_OPS_S = {"f32": 67e12, "bf16": 989e12}
+SWEEP_OPS = 9  # per element and direction: 4 min, 4 add/sub, 1 acc add
+WTA_OPS = 8  # per element: the two minima, the right-image min, compares
 
 
 def card_line() -> str:
@@ -71,26 +88,12 @@ def card_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
-def sbs_frames(n: int, seed: int) -> np.ndarray:
-    """(n, 1080, 1920, 3) uint8 SBS frames: random texture at a 2-pixel
-    grain; the right eye is the left eye shifted left by SHIFT_EYE."""
-    rng = np.random.default_rng(seed)
-    w_eye = W_SBS // 2
-    base = rng.integers(0, 256, (n, H // 2, (w_eye + SHIFT_EYE) // 2 + 1, 3),
-                        dtype=np.uint8)
-    base = np.repeat(np.repeat(base, 2, axis=1), 2, axis=2)
-    base = base[:, :H, :w_eye + SHIFT_EYE]
-    left = base[:, :, :w_eye]
-    right = base[:, :, SHIFT_EYE:SHIFT_EYE + w_eye]
-    return np.ascontiguousarray(np.concatenate([left, right], axis=2))
-
-
 def pan_frames(n: int, seed: int) -> np.ndarray:
     """(n, 1080, 1920, 3) uint8 SBS frames of one random texture (2-pixel
     grain) panning PAN_EYE eye pixels per frame: frame t's left eye is
     base[:, PAN_EYE*t:], so cur(x) = prev(x + PAN_EYE) (backward flow
     +PAN_EYE). The right eye is the left shifted by SHIFT_EYE, as in
-    :func:`sbs_frames`."""
+    ``tools/profile_stage.py sbs_batch``, which makes the still frames."""
     rng = np.random.default_rng(seed)
     w_eye = W_SBS // 2
     span = w_eye + SHIFT_EYE + PAN_EYE * n
@@ -118,6 +121,15 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(nbytes: float, ops: float = 0.0, unit: str = "f32"):
+    """(ms, "bytes" | "operations"): the least time the card could take to
+    move ``nbytes`` (each input read once, each output written once) and
+    do ``ops`` operations on ``unit``."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = ops / PEAK_OPS_S[unit] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -134,7 +146,7 @@ def twins():
     swaps = (
         (costvol, "cost_volume", costvol.cost_volume_plain),
         (sgm, "horizontal_sweeps", sgm.horizontal_sweeps_plain),
-        (sgm, "down_sweeps_wta", sgm.down_sweeps_wta_plain),
+        (sgm, "vertical_sweeps_wta", sgm.vertical_sweeps_wta_plain),
         (speckle, "speckle_filter", speckle_filter_device),
         (attention, "attention_multihead",
          lambda q, k, v, sm_scale, heads_per_step=8:
@@ -153,9 +165,18 @@ def twins():
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is visible")
+    t_start = time.perf_counter()
+
+    def phase(name: str) -> None:
+        print(f"-- {name} (at {time.perf_counter() - t_start:.1f} s)",
+              flush=True)
     sys.path.insert(0, str(ROOT))
+    from video3d_tpu_torch.core import (_native, list_depth_frames,
+                                        load_depth_png16)
+    import video3d_tpu_torch.kernels as kernels_api
     from video3d_tpu_torch.kernels import (_build, attention, costvol,
-                                           flowmatch, sgm, speckle, warp)
+                                           flowmatch, sgm, speckle, warp,
+                                           wmajor)
     from video3d_tpu_torch.models.dpt import random_dpt_guidance
     from video3d_tpu_torch.ops.attention import attention_plain
     from video3d_tpu_torch.ops.fill import fill_holes
@@ -165,13 +186,20 @@ def main() -> int:
     from video3d_tpu_torch.ops.image import resize2d, rgb_to_gray
     from video3d_tpu_torch.ops.speckle import speckle_filter_device
     from video3d_tpu_torch.ops.stereo import (INVALID, SGBMParams,
-                                              sgbm_disparity)
+                                              sgbm_disparity, sgm_aggregate)
     from video3d_tpu_torch.parallel.temporal import TemporalFlowEMAStream
     from video3d_tpu_torch.stages.depth import (StereoDepthExtractor,
                                                 depth_batch_pipeline,
                                                 disparity_to_uint16,
                                                 gray_pair, guidance_blend,
                                                 rgb_eyes)
+    from video3d_tpu_torch.tools import probe_i16
+    from video3d_tpu_torch.tools.profile_stage import sbs_batch
+
+    def sbs_frames(n: int, seed: int) -> np.ndarray:
+        """(n, 1080, 1920, 3) uint8 SBS frames, the eyes SHIFT_EYE apart,
+        as the profiler makes them."""
+        return sbs_batch(n, seed, H, W_SBS // 2, SHIFT_EYE)
 
     # f32 matmuls (resizes, the twins) stay full f32; the only convs are
     # DPT's, whose f32 ones run at TF32, PyTorch's default (models/dpt.py)
@@ -195,12 +223,11 @@ def main() -> int:
         cv2_version = cv2.__version__
     except ImportError:
         cv2_version = None
-    from video3d_tpu.core import _native
-
     print(f"cv2: {cv2_version}; native PNG writer: "
           f"{'yes' if _native.lib() is not None else 'no'}")
 
     # -- 2. build ----------------------------------------------------------
+    phase("2. build")
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.lib()
@@ -209,12 +236,21 @@ def main() -> int:
           f"-> {lib_path.relative_to(ROOT)}")
 
     # -- 3. each kernel against its twin at the main path's shapes ---------
+    phase("3. kernels against their twins")
     p = SGBMParams()
+    p8 = SGBMParams(num_paths=8)
     inv = 2.0 * p.prefilter_cap
     frames2 = torch.from_numpy(sbs_frames(B, SEED)).to(dev)
     gl, gr = gray_pair(frames2)
     check(gl.shape == (B, H, W_SBS), f"gray shape {tuple(gl.shape)}")
-    rows = []
+    rows = {}  # key -> row of the kernels line
+    vol = B * H * W_SBS * D  # elements of the batch's cost volume
+    pix = B * H * W_SBS
+
+    def add_row(key, **row):
+        t, by = bound(*row.pop("work"))
+        rows[key] = dict(row, bound_ms=t, bound_by=by,
+                         library_ms=row.get("library_ms"))
 
     cost, lf = costvol.cost_volume(gl, gr, p, inv, return_filtered_left=True)
     check(cost.shape == (B, H, W_SBS, D), f"cost shape {tuple(cost.shape)}")
@@ -223,44 +259,73 @@ def main() -> int:
     err = (cost.int() - cost_p.int()).abs().max().item()
     check(err == 0 and torch.equal(lf, lf_p), f"B1 differs from twin: {err}")
     at_1080 = "ms/frame at 1080p D=64"
-    rows.append(dict(
-        at=at_1080, name="B1 cost_volume", source="video3d_tpu_torch/csrc/costvol.cu",
-        replaces="video3d_tpu/kernels/costvol.py:394", max_abs_err=err,
+    b1 = dict(
+        at=at_1080, source="video3d_tpu_torch/csrc/costvol.cu", max_abs_err=err,
         ms=cuda_ms(lambda: costvol.cost_volume(gl, gr, p, inv), 5) / B,
         plain_ms=cuda_ms(lambda: costvol.cost_volume_plain(gl, gr, p, inv),
-                         1) / B))
+                         1) / B,
+        # two f32 eyes in, int16 volume out; BT cost and separable box sums
+        work=((2 * pix * 4 + vol * 2) / B, 20 * vol / B))
+    add_row("B1", name="B1 cost_volume",
+            replaces="video3d_tpu/kernels/costvol.py:394", **b1)
+    # the TPU's native-int16 variant computes the same function bit for bit
+    # (tests/test_torch_sgm_paths.py), as costvol.cu does: the same kernel
+    add_row("B1-i16", name="B1-i16 cost_volume (native int16 at 2x scale)",
+            replaces="video3d_tpu/kernels/costvol.py:196", **b1)
     del cost_p, lf_p
 
-    acc = sgm.horizontal_sweeps(cost, p)
-    acc_p = sgm.horizontal_sweeps_plain(cost, p)
-    torch.cuda.synchronize()
-    err = (acc.int() - acc_p.int()).abs().max().item()
-    check(err == 0, f"B2 differs from twin: {err}")
-    rows.append(dict(
-        at=at_1080, name="B2 horizontal_sweeps", source="video3d_tpu_torch/csrc/sgm.cu",
-        replaces="video3d_tpu/kernels/sgm.py:617", max_abs_err=err,
-        ms=cuda_ms(lambda: sgm.horizontal_sweeps(cost, p), 5) / B,
-        plain_ms=cuda_ms(lambda: sgm.horizontal_sweeps_plain(cost, p),
-                         1) / B))
-    del acc_p
+    for key, pp in (("B2", p), ("B2-hh", p8)):
+        acc = sgm.horizontal_sweeps(cost, pp)
+        acc_p = sgm.horizontal_sweeps_plain(cost, pp)
+        torch.cuda.synchronize()
+        err = (acc.double() - acc_p.double()).abs().max().item()
+        check(err == 0, f"{key} differs from twin: {err}")
+        ab = acc.element_size()
+        add_row(key, at=at_1080,
+                name=("B2 horizontal_sweeps" if pp is p else
+                      "B2 horizontal_sweeps, f32 acc (MODE_HH)"),
+                source="video3d_tpu_torch/csrc/sgm.cu",
+                replaces="video3d_tpu/kernels/sgm.py:617", max_abs_err=err,
+                ms=cuda_ms(lambda: sgm.horizontal_sweeps(cost, pp), 5) / B,
+                plain_ms=cuda_ms(lambda: sgm.horizontal_sweeps_plain(
+                    cost, pp), 1) / B,
+                work=(vol * (2 + ab) / B, 2 * SWEEP_OPS * vol / B))
+        del acc_p
+        if pp is p:
+            acc5 = acc
+    acc8 = acc
 
-    disp_p, m_p = sgm.down_sweeps_wta_plain(cost, acc, p, True)
-    acc_scratch = acc.clone()
-    disp, m = sgm.down_sweeps_wta(cost, acc_scratch, p, True)
-    torch.cuda.synchronize()
-    err = (disp - disp_p).abs().max().item()
-    check(torch.equal(disp >= 0, disp_p >= 0), "B3 validity differs")
-    check(err <= 1e-5, f"B3 disparity differs from twin: {err}")
-    check(torch.allclose(m, m_p, rtol=1e-6, atol=0.0), "B3 margin differs")
-    rows.append(dict(
-        at=at_1080, name="B3 down_sweeps_wta", source="video3d_tpu_torch/csrc/sgm.cu",
-        replaces="video3d_tpu/kernels/sgm.py:882", max_abs_err=err,
-        # the kernel adds into its acc argument: time it on a scratch copy
-        # (int16 wrap-around in the scratch does not change the work done)
-        ms=cuda_ms(lambda: sgm.down_sweeps_wta(cost, acc_scratch, p), 5) / B,
-        plain_ms=cuda_ms(lambda: sgm.down_sweeps_wta_plain(cost, acc, p),
-                         1) / B))
-    del disp_p, m_p, m, acc_scratch
+    for key, pp, acc in (("B3", p, acc5), ("B3-hh", p8, acc8)):
+        disp_p, m_p = sgm.vertical_sweeps_wta_plain(cost, acc, pp, True)
+        acc_scratch = acc.clone()
+        disp, m = sgm.vertical_sweeps_wta(cost, acc_scratch, pp, True)
+        torch.cuda.synchronize()
+        err = (disp - disp_p).abs().max().item()
+        check(torch.equal(disp >= 0, disp_p >= 0), f"{key} validity differs")
+        check(err <= 1e-5, f"{key} disparity differs from twin: {err}")
+        check(torch.allclose(m, m_p, rtol=1e-6, atol=0.0),
+              f"{key} margin differs")
+        n_dirs = 3 if pp is p else 6
+        add_row(key, at=at_1080,
+                name=("B3 vertical_sweeps_wta (MODE_SGBM, top-down)"
+                      if pp is p else "B3 vertical_sweeps_wta, f32 acc "
+                      "(MODE_HH, top-down then bottom-up)"),
+                source="video3d_tpu_torch/csrc/sgm.cu",
+                replaces="video3d_tpu/kernels/sgm.py:882", max_abs_err=err,
+                # the kernel adds into its acc argument: time it on a
+                # scratch copy (wrap-around in the scratch does not change
+                # the work done)
+                ms=cuda_ms(lambda: sgm.vertical_sweeps_wta(
+                    cost, acc_scratch, pp), 5) / B,
+                plain_ms=cuda_ms(lambda: sgm.vertical_sweeps_wta_plain(
+                    cost, acc, pp), 1) / B,
+                work=((vol * (2 + acc.element_size()) + pix * 4) / B,
+                      (n_dirs * SWEEP_OPS + WTA_OPS) * vol / B))
+        if pp is p:
+            disp5 = disp
+        del disp_p, m_p, m, acc_scratch
+    disp = disp5
+    del acc5, acc8, acc
 
     sp_args = (INVALID(p), float(p.speckle_range), p.speckle_window_size,
                (0.0, float(p.num_disparities)))
@@ -269,14 +334,127 @@ def main() -> int:
     torch.cuda.synchronize()
     err = (sp - sp_p).abs().max().item()
     check(torch.equal(sp, sp_p), f"B4 differs from twin: {err}")
-    rows.append(dict(
-        at=at_1080, name="B4 speckle_filter", source="video3d_tpu_torch/csrc/speckle.cu",
-        replaces="video3d_tpu/kernels/speckle.py:159", max_abs_err=err,
-        ms=cuda_ms(lambda: speckle.speckle_filter(disp, *sp_args), 10) / B,
-        plain_ms=cuda_ms(lambda: speckle_filter_device(disp, *sp_args),
-                         3) / B))
-    del cost, acc, disp, sp, sp_p, frames2
+    win = (2 * 10 + 1) ** 2  # the vote window at the default radius
+    add_row("B4", at=at_1080, name="B4 speckle_filter",
+            source="video3d_tpu_torch/csrc/speckle.cu",
+            replaces="video3d_tpu/kernels/speckle.py:159", max_abs_err=err,
+            ms=cuda_ms(lambda: speckle.speckle_filter(disp, *sp_args), 10) / B,
+            plain_ms=cuda_ms(lambda: speckle_filter_device(disp, *sp_args),
+                             3) / B,
+            work=(2 * pix * 4 / B, 2 * win * pix / B))
+    del disp, sp, sp_p, frames2
+
+    # B8a, the public sgm_aggregate_pallas, at 8 paths on f32 and bf16 cost
+    # (the B1 volume as floats); bit-equal to its twin
+    for key, dt in (("B8a-f32", torch.float32), ("B8a-bf16", torch.bfloat16)):
+        cf = cost.to(dt)
+        got = sgm.sgm_aggregate_pallas(cf, 8, p.p1, p.p2)
+        want = sgm_aggregate(cf, p8)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        check(torch.equal(got, want), f"{key} differs from twin: {err}")
+        del got, want
+        add_row(key, at=at_1080,
+                name=f"B8a sgm_aggregate_pallas, 8 paths, "
+                     f"{str(dt)[6:]} cost",
+                source="video3d_tpu_torch/csrc/sgm.cu",
+                replaces="video3d_tpu/kernels/sgm.py:119", max_abs_err=err,
+                ms=cuda_ms(lambda: sgm.sgm_aggregate_pallas(
+                    cf, 8, p.p1, p.p2), 3) / B,
+                plain_ms=cuda_ms(lambda: sgm_aggregate(cf, p8), 1) / B,
+                work=(vol * (cf.element_size() + 4) / B,
+                      8 * SWEEP_OPS * vol / B))
+        del cf
+
+    # B8c forward then reverse on the W-major volume: both horizontals
+    cost_t = cost.permute(0, 3, 2, 1).contiguous()  # (B, D, W, H)
+    fwd = wmajor.wmajor_sweep(cost_t, None, p.p1, p.p2, False, torch.int16)
+    fwd_p = wmajor.wmajor_sweep_plain(cost_t, None, p.p1, p.p2, False,
+                                      torch.int16)
+    both_p = wmajor.wmajor_sweep_plain(cost_t, fwd_p, p.p1, p.p2, True)
+    both = wmajor.wmajor_sweep(cost_t, fwd.clone(), p.p1, p.p2, True)
+    torch.cuda.synchronize()
+    err = max((fwd.int() - fwd_p.int()).abs().max().item(),
+              (both.int() - both_p.int()).abs().max().item())
+    check(err == 0, f"B8c differs from twin: {err}")
+    check(torch.equal(both.permute(0, 3, 2, 1), sgm.horizontal_sweeps(cost, p)),
+          "B8c's two sweeps differ from B2's")
+    scratch = both.clone()
+
+    def b8c():
+        wmajor.wmajor_sweep(cost_t, None, p.p1, p.p2, False, torch.int16)
+        wmajor.wmajor_sweep(cost_t, scratch, p.p1, p.p2, True)
+
+    def b8c_plain():
+        wmajor.wmajor_sweep_plain(cost_t, wmajor.wmajor_sweep_plain(
+            cost_t, None, p.p1, p.p2, False, torch.int16), p.p1, p.p2, True)
+
+    add_row("B8c", at=at_1080 + ", forward + reverse sweep",
+            name="B8c wmajor_sweep (W-major horizontals)",
+            source="video3d_tpu_torch/csrc/wmajor.cu",
+            replaces="video3d_tpu/kernels/sgm.py:391", max_abs_err=err,
+            ms=cuda_ms(b8c, 3) / B, plain_ms=cuda_ms(b8c_plain, 1) / B,
+            # the int16 cost read once, the int16 total written once, as
+            # B2's row counts the same function
+            work=(vol * (2 + 2) / B, 2 * SWEEP_OPS * vol / B))
+    del cost_t, fwd, fwd_p, both, both_p, scratch
+
+    # B8b round trip: equal to the input and to permute().contiguous()
+    t = wmajor.transpose_to_wmajor(cost)
+    back = wmajor.transpose_from_wmajor(t, H)
+    t_p = wmajor.transpose_to_wmajor_plain(cost)
+    torch.cuda.synchronize()
+    check(torch.equal(back, cost), "B8b round trip differs from its input")
+    check(torch.equal(t, t_p), "B8b differs from its twin")
+    check(torch.equal(t[..., :H], cost.permute(0, 3, 2, 1)),
+          "B8b differs from permute")
+    del back, t_p
+
+    def lib_round_trip():
+        cost.permute(0, 3, 2, 1).contiguous()[..., :H].permute(
+            0, 3, 2, 1).contiguous()
+
+    add_row("B8b", at=at_1080 + ", to and from W-major (HP = 1152)",
+            name="B8b transpose_to/from_wmajor",
+            source="video3d_tpu_torch/csrc/wmajor.cu",
+            replaces="video3d_tpu/kernels/sgm.py:254,279", max_abs_err=0,
+            ms=cuda_ms(lambda: wmajor.transpose_from_wmajor(
+                wmajor.transpose_to_wmajor(cost), H), 5) / B,
+            plain_ms=cuda_ms(lambda: wmajor.transpose_from_wmajor_plain(
+                wmajor.transpose_to_wmajor_plain(cost), H), 3) / B,
+            library_ms=cuda_ms(lib_round_trip, 5) / B,
+            # each way the int16 volume read once and written once; the
+            # padding lanes are garbage by contract and not counted
+            work=(4 * vol * 2 / B,))
+    del t, cost
     torch.cuda.empty_cache()
+
+    # P: the six int16 probe ops at the probe's shape, each against its
+    # torch expression on the probe's inputs and on full-range ones (add
+    # wraps, the cast saturates); timed on the probe's
+    xs_full = probe_i16.probe_inputs(dev, full_range=True)
+    xs = probe_i16.probe_inputs(dev)
+    p_ms = p_plain = 0.0
+    for name, (_, n_in, expr) in probe_i16.OPS.items():
+        for ins in (xs, xs_full):
+            got = probe_i16.probe_op(name, *ins[:n_in])
+            want = expr(*ins[:n_in])
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"P {name} differs from torch")
+        k_ms = cuda_ms(lambda: probe_i16.probe_op(name, *xs[:n_in]), 50)
+        e_ms = cuda_ms(lambda: expr(*xs[:n_in]), 50)
+        print(f"P {name}: OK, {k_ms * 1e3:.2f} us/call vs torch "
+              f"{e_ms * 1e3:.2f} us/call on {card}")
+        p_ms, p_plain = p_ms + k_ms, p_plain + e_ms
+    n_el = xs[0].numel()
+    add_row("P", at="ms for all six ops at (8, 64, 256) int16",
+            name="P probe_i16 (six int16 toy ops)",
+            source="video3d_tpu_torch/csrc/probe_i16.cu",
+            replaces="tools/probe_i16.py:34", max_abs_err=0, ms=p_ms,
+            plain_ms=p_plain,
+            # 2+3+2+1+1+1 inputs and six outputs of n_el int16 each
+            work=((10 + 6) * n_el * 2, 12 * n_el))
+    del xs, xs_full
 
     # B5 at the full-resolution depth warp (r = max_warp = 16) and at the
     # finest flow level at flow_scale 4 (270x480, r = 4 + search = 6).
@@ -307,12 +485,13 @@ def main() -> int:
         print(f"B5 warp {shape[0]}x{shape[1]} r={r}: max |err| {err} "
               f"({n_ne} values differ); {b5[-1]['ms']:.4f} ms/call vs plain "
               f"{b5[-1]['plain_ms']:.4f} ms/call on {card}")
-    rows.append(dict(
-        at="ms/call, 1080x1920 r=16 (one per frame)", name="B5 warp",
-        source="video3d_tpu_torch/csrc/warp.cu",
-        replaces="video3d_tpu/kernels/warp.py:91",
-        max_abs_err=max(b["err"] for b in b5), ms=b5[0]["ms"],
-        plain_ms=b5[0]["plain_ms"]))
+    add_row("B5", at="ms/call, 1080x1920 r=16 (one per frame)",
+            name="B5 warp", source="video3d_tpu_torch/csrc/warp.cu",
+            replaces="video3d_tpu/kernels/warp.py:91",
+            max_abs_err=max(b["err"] for b in b5), ms=b5[0]["ms"],
+            plain_ms=b5[0]["plain_ms"],
+            # image and two flow planes in, one plane out; two taps a pass
+            work=(4 * H * W_SBS * 4, 20 * H * W_SBS))
 
     # B6 at the finest flow level at flow_scale 4
     shape = (270, 480)
@@ -323,14 +502,17 @@ def main() -> int:
     torch.cuda.synchronize()
     err = max((g - w).abs().max().item() for g, w in zip(got, want))
     check(err <= 2e-4, f"B6 differs from twin: {err}")
-    rows.append(dict(
-        at="ms/call at 270x480, search 2, radius 3, tau 2", name="B6 flow_match",
-        source="video3d_tpu_torch/csrc/flowmatch.cu",
-        replaces="video3d_tpu/kernels/flowmatch.py:122", max_abs_err=err,
-        ms=cuda_ms(lambda: flowmatch.flow_match(cur, prev_w, fy, fx, 2, 3,
-                                                2.0), 20),
-        plain_ms=cuda_ms(lambda: flow_match_plain(cur, prev_w, fy, fx, 2, 3,
-                                                  2.0), 3)))
+    n6 = shape[0] * shape[1]
+    add_row("B6", at="ms/call at 270x480, search 2, radius 3, tau 2",
+            name="B6 flow_match", source="video3d_tpu_torch/csrc/flowmatch.cu",
+            replaces="video3d_tpu/kernels/flowmatch.py:122", max_abs_err=err,
+            ms=cuda_ms(lambda: flowmatch.flow_match(cur, prev_w, fy, fx, 2, 3,
+                                                    2.0), 20),
+            plain_ms=cuda_ms(lambda: flow_match_plain(cur, prev_w, fy, fx, 2,
+                                                      3, 2.0), 3),
+            # four planes in, two out; 25 candidates of separable 7x7 SADs
+            # and the softargmin update
+            work=(6 * n6 * 4, 25 * (2 * 7 + 6) * n6))
     del img, fy, fx, got, want, cur, prev_w
 
     # B7a (8 heads per block) and B7b (one) at DPT-large's attention shape
@@ -357,8 +539,8 @@ def main() -> int:
                     check(max_err <= 1e-5,
                           f"{name} f32 differs from twin at {shape}: {max_err}")
                 else:
-                    bound = 2.0 ** -7 * want.abs() + 2.0 ** -10
-                    frac = float((err <= bound).float().mean().item())
+                    tol = 2.0 ** -7 * want.abs() + 2.0 ** -10
+                    frac = float((err <= tol).float().mean().item())
                     check(frac >= 0.999,
                           f"{name} bf16 vs twin at {shape}: {frac} in bound")
                 key = (name, shape, dtype)
@@ -367,10 +549,14 @@ def main() -> int:
                     b7[key]["ms"] = cuda_ms(fn, 20)
                     b7[key]["plain_ms"] = cuda_ms(
                         lambda: attention_plain(q, k, v, sm), 20)
+                    b7[key]["library_ms"] = cuda_ms(
+                        lambda: torch.nn.functional.
+                        scaled_dot_product_attention(q, k, v, scale=sm), 20)
                 print(f"{name} attention {shape} {str(dtype)[6:]}: max |err| "
                       f"{max_err:.3e}, {frac:.6f} of outputs in bound"
                       + (f"; {b7[key]['ms']:.4f} ms/call vs plain "
-                         f"{b7[key]['plain_ms']:.4f} on {card}"
+                         f"{b7[key]['plain_ms']:.4f}, SDPA "
+                         f"{b7[key]['library_ms']:.4f} on {card}"
                          if "ms" in b7[key] else ""))
     del q, k, v, want, got, err
     # one kernel and one launch count: the DPT path calls B7a's entry at
@@ -380,44 +566,63 @@ def main() -> int:
             ("B7b", "attention_oneblock", 116,
              "1 head per block (the DPT path's setting)")):
         key = (name, (2, 16, 577, 64), torch.bfloat16)
-        rows.append(dict(
-            at=f"ms/call at (2, 16, 577, 64) bf16 (one ViT layer, two "
-               f"keyframes), {per_block}", name=f"{name} {label}",
-            source="video3d_tpu_torch/csrc/attention.cu",
-            replaces=f"video3d_tpu/kernels/attention.py:{src_line}",
-            max_abs_err=max(e["err"] for kk, e in b7.items()
-                            if kk[0] == name),
-            ms=b7[key]["ms"], plain_ms=b7[key]["plain_ms"]))
+        n_qkv = 2 * 16 * 577 * 64
+        add_row(name, at=f"ms/call at (2, 16, 577, 64) bf16 (one ViT layer, "
+                         f"two keyframes), {per_block}",
+                name=f"{name} {label}",
+                source="video3d_tpu_torch/csrc/attention.cu",
+                replaces=f"video3d_tpu/kernels/attention.py:{src_line}",
+                max_abs_err=max(e["err"] for kk, e in b7.items()
+                                if kk[0] == name),
+                ms=b7[key]["ms"], plain_ms=b7[key]["plain_ms"],
+                library_ms=b7[key]["library_ms"],
+                # q, k, v in and o out in bf16; QK^T and PV on bf16 units
+                work=(4 * n_qkv * 2, 4 * 2 * 16 * 577 * 577 * 64, "bf16"))
     torch.cuda.empty_cache()
-    for r in rows:
+    for r in rows.values():
+        lib_ms = ("none" if r["library_ms"] is None
+                  else f"{r['library_ms']:.4f}")
         print(f"{r['name']}: matches its twin (max |err| {r['max_abs_err']}); "
               f"{r['ms']:.4f} vs plain {r['plain_ms']:.4f} {r['at']} "
               f"on {card}")
+        print(f"{r['name']}: bound {r['bound_ms']:.4f} ({r['bound_by']}); "
+              f"library call {lib_ms}; same units")
 
     # -- 4. the main path ----------------------------------------------------
-    def plain_depth(frames_np):
+    phase("4. the stereo path")
+    def plain_depth(frames_np, params=p):
         """uint16 maps and left gray of the depth path on the plain twins."""
         x = torch.from_numpy(frames_np).to(dev)
         pgl, pgr = gray_pair(x)
-        pcost = costvol.cost_volume_plain(pgl, pgr, p, inv)
-        pdisp = sgm.down_sweeps_wta_plain(
-            pcost, sgm.horizontal_sweeps_plain(pcost, p), p)
+        pcost = costvol.cost_volume_plain(pgl, pgr, params, inv)
+        pdisp = sgm.vertical_sweeps_wta_plain(
+            pcost, sgm.horizontal_sweeps_plain(pcost, params), params)
         pdisp = speckle_filter_device(pdisp, *sp_args)
-        return disparity_to_uint16(pdisp, p.num_disparities), pgl
+        return disparity_to_uint16(pdisp, params.num_disparities), pgl
 
-    def counts(reset: bool = False) -> list:
-        mods = ((costvol, "launches"), (sgm, "sweep_launches"),
-                (sgm, "wta_launches"), (speckle, "launches"),
-                (warp, "launches"), (flowmatch, "launches"),
-                (attention, "launches"))
+    counters = {  # kernel -> (wrapper module, its launch count)
+        "B1": (costvol, "launches"), "B2": (sgm, "sweep_launches"),
+        "B3": (sgm, "wta_launches"), "B4": (speckle, "launches"),
+        "B5": (warp, "launches"), "B6": (flowmatch, "launches"),
+        "B7": (attention, "launches"), "B8a": (sgm, "aggregate_launches"),
+        "B8b": (wmajor, "transpose_launches"),
+        "B8c": (wmajor, "sweep_launches"), "P": (probe_i16, "launches"),
+    }
+
+    def counts(reset: bool = False) -> dict:
         if reset:
-            for mod, attr in mods:
+            for mod, attr in counters.values():
                 setattr(mod, attr, 0)
-        return [getattr(mod, attr) for mod, attr in mods]
+        return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+
+    def ran(c: dict, keys, what: str) -> list:
+        """The launch counts of ``keys`` in ``c``; fails if one is 0."""
+        n = [c[k] for k in keys]
+        check(all(k > 0 for k in n), f"a kernel never ran on {what}: "
+              f"{dict(zip(keys, n))}")
+        return n
 
     def read_maps(cache, n):
-        from video3d_tpu.core import list_depth_frames, load_depth_png16
-
         files = list_depth_frames(cache)
         check(len(files) == n, f"{len(files)} PNGs for {n} frames")
         maps = np.stack([load_depth_png16(f) for f in files])
@@ -449,14 +654,14 @@ def main() -> int:
         n = ext._run_batches(batches, cache)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
-        launches = counts()[:4]
+        launches = ran(counts(), ("B1", "B2", "B3", "B4"), "the main path")
         print(f"main path: {n} frames in batches of {batch}, "
               f"{run_s:.3f} s incl. first-batch warm-up and PNG writes; "
               f"launches B1..B4 = {launches}")
-        for r, k in zip(rows, launches):
-            r["launches"] = k
+        for key, k in zip(("B1", "B2", "B3", "B4"), launches):
+            rows[key]["launches"] = k
+        rows["B1-i16"]["launches"] = launches[0]
         check(n == 2 * batch, f"wrote {n} frames")
-        check(all(k > 0 for k in launches), f"a kernel never ran: {launches}")
         maps = read_maps(cache, n)
         check_disparity(maps, "main path")
 
@@ -469,6 +674,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         # -- 4b. the flow-smoothed path --------------------------------------
+        phase("4b. the flow path")
         fext = StereoDepthExtractor(work_dir=str(work), guidance="none",
                                     device=dev, temporal_smooth="flow")
         fbatch = fext._auto_batch_size(H, W_SBS)
@@ -482,16 +688,14 @@ def main() -> int:
         n_flow = fext._run_batches(fbatches, fcache)
         torch.cuda.synchronize()
         flow_s = time.perf_counter() - t0
-        flaunches = counts()
+        flaunches = ran(counts(), ("B1", "B2", "B3", "B4", "B5", "B6"),
+                        "the flow path")
         print(f"flow path: {n_flow} frames in batches of {fbatch}, "
               f"{flow_s:.3f} s "
               f"incl. first-batch warm-up and PNG writes; launches B1..B6 = "
               f"{flaunches}")
-        for r, k in zip(rows[4:6], flaunches[4:6]):
-            r["launches"] = k
+        rows["B5"]["launches"], rows["B6"]["launches"] = flaunches[4:6]
         check(n_flow == 2 * fbatch, f"wrote {n_flow} frames")
-        check(all(k > 0 for k in flaunches[:6]),
-              f"a kernel never ran on the flow path: {flaunches}")
         fmaps = read_maps(fcache, n_flow)
         check_disparity(fmaps, "flow path")
 
@@ -535,6 +739,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         # -- 4c. the DPT hybrid path -----------------------------------------
+        phase("4c. the hybrid path")
         # DPT-large at full width and depth, random bf16 weights from seed 0
         # (no checkpoint ships with the repository)
         t0 = time.perf_counter()
@@ -555,7 +760,9 @@ def main() -> int:
         n_hyb = hext._run_batches(hbatches, hcache)
         torch.cuda.synchronize()
         hyb_s = time.perf_counter() - t0
-        hlaunches = counts()
+        hc = counts()
+        hlaunches = [hc[k] for k in ("B1", "B2", "B3", "B4", "B5", "B6",
+                                     "B7")]
         print(f"hybrid path: {n_hyb} frames in batches of 8, K="
               f"{hext.guidance_every}, fill {hext.fill_holes}, blend "
               f"{hext.blend}, {hyb_s:.3f} s incl. first-batch warm-up and PNG "
@@ -565,7 +772,7 @@ def main() -> int:
               f"hybrid path launches {hlaunches}")
         check(hlaunches[6] == 2 * 24,
               f"B7 launches {hlaunches[6]}, expected 24 per batch")
-        rows[6]["launches"] = rows[7]["launches"] = hlaunches[6]
+        rows["B7a"]["launches"] = rows["B7b"]["launches"] = hlaunches[6]
         hmaps = read_maps(hcache, n_hyb)
 
         # batch 0 step by step on the kernels: fill, finite blend, and the
@@ -610,7 +817,8 @@ def main() -> int:
             tmaps = depth_batch_pipeline(
                 x0, guidance_fn=gfn, guidance_every=4,
                 fill_holes=True).cpu().to(torch.int32).numpy()
-            check(counts() == [0] * 7, f"twin run launched {counts()}")
+            check(not any(counts().values()),
+                  f"twin run launched {counts()}")
         d = np.abs(tmaps - hmaps[:8].astype(np.int32))
         within = float((d <= 64).mean())
         print(f"hybrid batch 0 vs the twins: {float((d == 0).mean()):.6f} of "
@@ -620,13 +828,103 @@ def main() -> int:
         del x0, left, right, hgl, hgr, disp, conf, filled, holes, blended
         torch.cuda.empty_cache()
 
+        # -- 4d. MODE_HH: 8 paths, f32 accumulator, bottom-up close --------
+        phase("4d. the MODE_HH path")
+        hh_ext = StereoDepthExtractor(work_dir=str(work), guidance="none",
+                                      batch_size=8, device=dev, params=p8)
+        hh_batches = [(sbs_frames(8, SEED + 30 + i), 8) for i in range(2)]
+        hh_cache = work / "depth_hh"
+        counts(reset=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n_hh = hh_ext._run_batches(hh_batches, hh_cache)
+        torch.cuda.synchronize()
+        hh_s = time.perf_counter() - t0
+        hh_launches = ran(counts(), ("B1", "B2", "B3", "B4"), "the MODE_HH path")
+        print(f"MODE_HH path: {n_hh} frames in batches of 8, {hh_s:.3f} s "
+              f"incl. first-batch warm-up and PNG writes = "
+              f"{n_hh / hh_s:.2f} frames/s on {card}; launches B1..B4 = "
+              f"{hh_launches}")
+        rows["B2-hh"]["launches"], rows["B3-hh"]["launches"] = hh_launches[1:3]
+        check(n_hh == 16, f"wrote {n_hh} frames")
+        hh_maps = read_maps(hh_cache, n_hh)
+        check_disparity(hh_maps, "MODE_HH path")
+        counts(reset=True)
+        plain_maps, _ = plain_depth(hh_batches[0][0], p8)
+        check(not any(counts().values()), "the plain path launched a kernel")
+        n_diff = int((plain_maps.cpu().to(torch.int32).numpy()
+                      != hh_maps[:8].astype(np.int32)).sum())
+        print(f"MODE_HH batch 0 uint16 maps vs the all-twin path: {n_diff} "
+              f"pixels differ")
+        check(n_diff == 0, "MODE_HH path differs from the all-twin path")
+        del plain_maps
+        torch.cuda.empty_cache()
+
+        # -- 4e. the W-major horizontal routes, 5 and 8 paths ----------------
+        phase("4e. the routes")
+        rgl, rgr = gray_pair(torch.from_numpy(hh_batches[1][0]).to(dev))
+        counts(reset=True)
+        for pp in (p, p8):
+            legacy = sgbm_disparity(rgl, rgr, pp)
+            for route in ("xla", "mxu"):
+                got = sgbm_disparity(rgl, rgr, pp, horizontal_route=route)
+                check(torch.equal(got, legacy),
+                      f"route {route} at {pp.num_paths} paths differs from "
+                      f"legacy")
+            print(f"routes xla and mxu at {pp.num_paths} paths: disparities "
+                  f"equal to legacy's bit for bit (batch of 8, valid "
+                  f"{float((legacy >= 0).float().mean()):.4f})")
+        route_launches = ran(counts(), ("B8b", "B8c"), "the routes")
+        print(f"routes: launches B8b, B8c = {route_launches}")
+        rows["B8b"]["launches"], rows["B8c"]["launches"] = route_launches
+        del legacy, got, rgl, rgr
+        torch.cuda.empty_cache()
+
+        # -- 4f. B8a through the public sgm_aggregate_pallas ------------------
+        phase("4f. sgm_aggregate_pallas")
+        # on the f32 and bf16 cost volume of two 1080p frames at 8 paths
+        counts(reset=True)
+        agl, agr = gray_pair(torch.from_numpy(sbs_frames(B, SEED + 40)).to(dev))
+        acost = costvol.cost_volume(agl, agr, p, inv)
+        for key, dt in (("B8a-f32", torch.float32),
+                        ("B8a-bf16", torch.bfloat16)):
+            before = sgm.aggregate_launches
+            agg = kernels_api.sgm_aggregate_pallas(acost.to(dt), 8)
+            check(agg.dtype == torch.float32 and bool(torch.isfinite(agg).all())
+                  and agg.shape == acost.shape, f"{key} output")
+            rows[key]["launches"] = sgm.aggregate_launches - before
+        ran(counts(), ("B8a",), "sgm_aggregate_pallas")
+        print(f"sgm_aggregate_pallas: launches B8a = {sgm.aggregate_launches}")
+        del agl, agr, acost, agg
+        torch.cuda.empty_cache()
+
+        # -- 4g. the int16 probe's own run ------------------------------------
+        phase("4g. the probe")
+        counts(reset=True)
+        check(probe_i16.main([]) == 0, "the int16 probe failed")
+        rows["P"]["launches"] = ran(counts(), ("P",), "the probe")[0]
+
         # -- 5. stage frames/s on the device (no PNG writes) ---------------
+        phase("5. timings")
         xb = torch.from_numpy(batches[1][0]).to(dev)
         ms = cuda_ms(lambda: depth_batch_pipeline(xb), 3)
         fps = batch * 1000.0 / ms
         print(f"stage: {ms:.3f} ms per batch of {batch} = {fps:.2f} frames/s "
               f"(1080p SBS, stereo-only, device time) on {card}")
         print(f"main path incl. PNG writes: {n / run_s:.2f} frames/s on {card}")
+
+        # MODE_HH and the routes on one batch of 8, each beside legacy
+        xr = torch.from_numpy(hh_batches[1][0]).to(dev)
+        for pp in (p, p8):
+            for route in ("legacy", "xla", "mxu"):
+                ms_r = cuda_ms(lambda: depth_batch_pipeline(
+                    xr, params=pp, horizontal_route=route), 3)
+                print(f"stage {pp.num_paths} paths, route {route}: "
+                      f"{ms_r:.3f} ms per batch of 8 = {8000.0 / ms_r:.2f} "
+                      f"frames/s (device time) on {card}")
+        print(f"MODE_HH path incl. PNG writes: {n_hh / hh_s:.2f} frames/s on "
+              f"{card}")
+        del xr
 
         xf = torch.from_numpy(fbatches[1][0]).to(dev)
         stream = TemporalFlowEMAStream()
@@ -689,7 +987,9 @@ def main() -> int:
     kernels = [dict(name=r["name"], route="cuda", source=r["source"],
                     replaces=r["replaces"], launches=r["launches"],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
-                    plain_ms=r["plain_ms"]) for r in rows]
+                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                    bound_by=r["bound_by"], library_ms=r["library_ms"])
+               for r in rows.values()]
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

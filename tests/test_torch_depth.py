@@ -42,26 +42,48 @@ def assert_c5(a: np.ndarray, b: np.ndarray, valid_a, valid_b,
 
 
 def test_port_is_jax_free_and_params_pinned():
+    """Every module of the port, and chip_smoke.py, imports with
+    ``video3d_tpu`` made unimportable and without importing jax."""
+    modules = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts)
+        for p in (REPO / "video3d_tpu_torch").rglob("*.py")
+        if p.name != "__init__.py" or p.parent.name != "video3d_tpu_torch")
     code = (
-        "import sys\n"
-        "import video3d_tpu_torch.stages.depth, video3d_tpu_torch.cli.depth\n"
-        "import video3d_tpu_torch.kernels.costvol, "
-        "video3d_tpu_torch.kernels.sgm, video3d_tpu_torch.kernels.speckle\n"
-        "import video3d_tpu_torch.ops.flow, "
-        "video3d_tpu_torch.parallel.temporal\n"
-        "import video3d_tpu_torch.kernels.warp, "
-        "video3d_tpu_torch.kernels.flowmatch\n"
-        "import video3d_tpu_torch.models.dpt, video3d_tpu_torch.models.mono, "
-        "video3d_tpu_torch.models.guidance\n"
-        "import video3d_tpu_torch.ops.fill, video3d_tpu_torch.ops.attention, "
-        "video3d_tpu_torch.kernels.attention\n"
+        "import importlib, sys\n"
+        "sys.modules['video3d_tpu'] = None  # any import of it now fails\n"
+        f"for name in {modules!r} + ['video3d_tpu_torch', 'chip_smoke']:\n"
+        "    importlib.import_module(name.removesuffix('.__init__'))\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
+        "assert callable(sys.modules['chip_smoke'].main)\n"
         "print('ok')\n"
     )
+    assert "video3d_tpu_torch.cli.depth" in modules
+    assert "video3d_tpu_torch.core.video" in modules
+    assert "video3d_tpu_torch.kernels.wmajor" in modules
+    assert "video3d_tpu_torch.tools.probe_i16" in modules
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+    blocked = subprocess.run(
+        [sys.executable, "-c", "import sys\nsys.modules['video3d_tpu'] = "
+         "None\nimport video3d_tpu.core"], cwd=REPO, capture_output=True,
+        text=True, timeout=60)
+    assert blocked.returncode != 0  # the block itself works
+    # imports inside functions run only when called: read every import
+    # statement of the port and of chip_smoke.py
+    import ast
+
+    for path in [REPO / "chip_smoke.py",
+                 *(REPO / "video3d_tpu_torch").rglob("*.py")]:
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else
+                     [node.module or ""]
+                     if isinstance(node, ast.ImportFrom) else [])
+            for name in names:
+                assert name.split(".")[0] not in ("jax", "video3d_tpu"), (
+                    f"{path.relative_to(REPO)} imports {name}")
     ported = sgbm_params_from_jax(dataclasses.asdict(JaxParams()))
     for f in dataclasses.fields(SGBMParams):
         assert getattr(ported, f.name) == getattr(SGBMParams(), f.name), f.name

@@ -113,8 +113,8 @@ def test_cuda_kernels_match_twins(cuda_device):
     assert torch.equal(cost, cost_p) and torch.equal(lf, lf_p)
     acc = sgm.horizontal_sweeps(cost, p)
     assert torch.equal(acc, sgm.horizontal_sweeps_plain(cost, p))
-    disp_p, m_p = sgm.down_sweeps_wta_plain(cost, acc, p, True)
-    disp, m = sgm.down_sweeps_wta(cost, acc.clone(), p, True)
+    disp_p, m_p = sgm.vertical_sweeps_wta_plain(cost, acc, p, True)
+    disp, m = sgm.vertical_sweeps_wta(cost, acc.clone(), p, True)
     assert torch.equal(disp >= 0, disp_p >= 0)
     assert (disp - disp_p).abs().max().item() <= 1e-5
     assert torch.allclose(m, m_p, rtol=1e-6)

@@ -1,4 +1,4 @@
-"""Plain twin of kernel B3 (downward sweeps + WTA) vs the JAX kernel.
+"""Plain twin of kernel B3 (5-path downward sweeps + WTA) vs the JAX kernel.
 
 ``sgm_wta_pallas_dmajor`` runs in interpret mode on CPU; the port's B2 and
 B3 twins run on CPU tensors of the same int16 cost volume (the JAX B1
@@ -25,7 +25,7 @@ def test_b3_wta_twin(cost_i16, return_margin):
                                  return_margin=return_margin)
     cost = torch.from_numpy(cost_i16).permute(0, 1, 3, 2).contiguous()
     acc = sgm.horizontal_sweeps(cost, p)
-    got = sgm.down_sweeps_wta(cost, acc, p, return_margin=return_margin)
+    got = sgm.vertical_sweeps_wta(cost, acc, p, return_margin=return_margin)
     if return_margin:
         (want, want_m), (got, got_m) = want, got
         np.testing.assert_allclose(got_m.numpy(), np.asarray(want_m),

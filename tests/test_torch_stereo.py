@@ -72,4 +72,4 @@ def test_sgbm_disparity_matches_tpu_path(w, return_margin):
 def test_unported_configurations_raise():
     x = torch.zeros((1, 8, 32))
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        stereo.sgbm_disparity(x, x, stereo.SGBMParams(num_paths=8))
+        stereo.sgbm_disparity(x, x, stereo.SGBMParams(min_disparity=-4))

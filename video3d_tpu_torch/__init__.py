@@ -1,10 +1,11 @@
 """PyTorch + CUDA port of video3d_tpu for NVIDIA Hopper (H100).
 
 Mirrors the JAX package's module names (``ops``, ``kernels``, ``models``,
-``stages``, ``cli``); imports ``torch`` and never ``jax``. Host I/O (video decode,
-PNG16 writing, cache keys) is shared with the JAX package through
-``video3d_tpu.core``, which is JAX-free. Ported so far: the stereo-only
-depth stage (``python -m video3d_tpu_torch.cli.depth <sbs.mp4>
---stereo-only``), the temporal smoothers, and the DPT hybrid
+``stages``, ``cli``, ``core``); imports ``torch`` and never ``jax``, and
+nothing of ``video3d_tpu``. Host I/O (video decode, PNG16 writing, cache
+keys) is the port's own copy, ``video3d_tpu_torch.core``. Ported so far:
+the stereo-only depth stage (``python -m video3d_tpu_torch.cli.depth
+<sbs.mp4> --stereo-only``) with every matcher mode (2, 4, 5 and 8 paths)
+and both horizontal routes, the temporal smoothers, and the DPT hybrid
 (``--guidance dpt``, ``models/``).
 """

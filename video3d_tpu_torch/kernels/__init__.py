@@ -4,7 +4,8 @@ Each wrapper module holds a plain integer launch count and sends a CUDA
 tensor to its kernel (or raises) and a CPU tensor to its plain PyTorch
 twin; nothing else chooses between them. ``_build`` compiles
 ``video3d_tpu_torch/csrc/*.cu`` with nvcc into ``build/kernels/`` and loads
-the library with ctypes.
+the library with ctypes. ``sgm_aggregate_pallas`` (B8a) is exported here,
+as the JAX package exports its kernel of that name.
 
 Every TPU kernel of the JAX package (each function reaching
 ``pl.pallas_call``) and where it stands in the port:
@@ -13,11 +14,13 @@ Every TPU kernel of the JAX package (each function reaching
  #    TPU kernel (video3d_tpu/...)                            port
 ==== ======================================================= ===============================
  B1   kernels/costvol.py:394 fused_cost_volume                csrc/costvol.cu, kernels/costvol.py
- --   same, VIDEO3D_TPU_COSTVOL_NATIVE_I16=1 (:196)           still to port (env variant;
-                                                              costvol.cu already computes in
-                                                              int16 at 2x scale)
+ B1-  same, VIDEO3D_TPU_COSTVOL_NATIVE_I16=1                  csrc/costvol.cu (the same kernel:
+ i16  (_cost_row_step_i16 :196)                               it computes in int16 at 2x scale,
+                                                              bit-equal to that variant)
  B2   kernels/sgm.py:617 _directional_pass_dmajor             csrc/sgm.cu, kernels/sgm.py
+                                                              (int16 or f32 accumulator)
  B3   kernels/sgm.py:882 sgm_wta_pallas_dmajor                csrc/sgm.cu, kernels/sgm.py
+                                                              (top-down or bottom-up close)
  B4   kernels/speckle.py:159 speckle_filter_pallas            csrc/speckle.cu, kernels/speckle.py
  B5   kernels/warp.py:91 warp_bilinear_shifts_pallas          csrc/warp.cu, kernels/warp.py
  B6   kernels/flowmatch.py:122 flow_match_pallas              csrc/flowmatch.cu, kernels/flowmatch.py
@@ -25,13 +28,20 @@ Every TPU kernel of the JAX package (each function reaching
  B7b  kernels/attention.py:116 attention_oneblock             csrc/attention.cu, kernels/attention.py
                                                               (one kernel template at 8 and 1
                                                               heads per block; one launch count)
- B8a  kernels/sgm.py:119 _directional_pass                    still to port ((B,H,W,D) sweeps)
- B8b  kernels/sgm.py:254,279 transpose_to/from_wmajor         still to port (transposes)
- B8c  kernels/sgm.py:391 _directional_pass_wmajor             still to port (W-major sweeps)
- P    tools/probe_i16.py:34 run (toy kernels :50-70)          still to port (Mosaic int16
-                                                              lowering probes; a toolchain
-                                                              probe, not a system path)
+ B8a  kernels/sgm.py:119 _directional_pass                    csrc/sgm.cu (the sweep template at
+      (via sgm_aggregate_pallas :148)                         f32/bf16 cost), kernels/sgm.py
+                                                              sgm_aggregate_pallas
+ B8b  kernels/sgm.py:254,279 transpose_to/from_wmajor         csrc/wmajor.cu, kernels/wmajor.py
+ B8c  kernels/sgm.py:391 _directional_pass_wmajor             csrc/wmajor.cu, kernels/wmajor.py
+ P    tools/probe_i16.py:34 run (toy kernels :50-70)          csrc/probe_i16.cu,
+                                                              tools/probe_i16.py (a toolchain
+                                                              probe, outside the stage)
 ==== ======================================================= ===============================
 
-``sgm_aggregate_pallas_dmajor`` (kernels/sgm.py:1018) only calls B2.
+``sgm_aggregate_pallas_dmajor`` (kernels/sgm.py:1018) only calls B2; the
+port's is a wrapper around B8a's.
 """
+
+from video3d_tpu_torch.kernels.sgm import sgm_aggregate_pallas
+
+__all__ = ["sgm_aggregate_pallas"]

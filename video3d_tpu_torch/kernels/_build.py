@@ -43,8 +43,15 @@ _SIGNATURES = {
     "v3d_prefilter": [_P, _P, _P, _P, _I, _I, _I, _F, _P],
     "v3d_cost_volume": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # sgm.cu
-    "v3d_sgm_sweep": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "v3d_sgm_wta": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "v3d_sgm_sweep": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I,
+                      _P],
+    "v3d_sgm_wta": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # wmajor.cu
+    "v3d_wmajor_sweep": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I, _I,
+                         _P],
+    "v3d_wmajor_transpose": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # probe_i16.cu
+    "v3d_probe_i16": [_I, _P, _P, _P, _P, _I, _I, _P],
     # speckle.cu
     "v3d_speckle": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _I, _P],
     # warp.cu

@@ -1,12 +1,17 @@
-"""Kernel B2 and B3 wrappers: SGM sweeps and winner-take-all.
+"""Kernel B2, B3 and B8a wrappers: SGM sweeps and winner-take-all.
 
-CUDA source: ``video3d_tpu_torch/csrc/sgm.cu``. B2 replaces the TPU kernel
-``video3d_tpu/kernels/sgm.py _directional_pass_dmajor`` (the forward and
-backward horizontal sweeps); B3 replaces ``sgm_wta_pallas_dmajor`` (the
-top-down vertical and diagonal sweeps plus WTA). Volumes are in the port's
-``(B, H, W, D)`` int16 layout; the plain twins are
-:func:`video3d_tpu_torch.ops.stereo.sgm_sweep_dmajor` and
-:func:`~video3d_tpu_torch.ops.stereo.sgm_down_wta_dmajor` on permuted views.
+CUDA source: ``video3d_tpu_torch/csrc/sgm.cu``, one sweep kernel templated
+on the cost, accumulator and compute types, and one WTA kernel. B2
+replaces the TPU kernel ``video3d_tpu/kernels/sgm.py
+_directional_pass_dmajor`` (the forward and backward horizontal sweeps,
+int16 or f32 accumulator); B3 replaces ``sgm_wta_pallas_dmajor`` (the
+vertical sweeps of the mode -- top-down for 5 paths, top-down then
+bottom-up for 4 and 8 -- plus WTA); B8a replaces ``_directional_pass``,
+the sweeps of ``sgm_aggregate_pallas`` on an f32 or bf16 cost. Volumes are
+in the port's ``(B, H, W, D)`` layout; the plain twins are
+:func:`video3d_tpu_torch.ops.stereo.sgm_sweep_dmajor`,
+:func:`~video3d_tpu_torch.ops.stereo.sgm_vertical_wta_dmajor` and
+:func:`~video3d_tpu_torch.ops.stereo.sgm_aggregate` on permuted views.
 """
 
 from __future__ import annotations
@@ -15,12 +20,18 @@ import torch
 
 from video3d_tpu_torch.kernels import _build
 from video3d_tpu_torch.ops.stereo import (SGBMParams, acc_dtype_for_params,
-                                          integral_penalties,
-                                          sgm_down_wta_dmajor,
-                                          sgm_sweep_dmajor)
+                                          check_integer_totals,
+                                          integral_penalties, sgm_aggregate,
+                                          sgm_sweep_dmajor,
+                                          sgm_vertical_wta_dmajor,
+                                          vertical_directions)
 
-sweep_launches = 0  # B2: calls that launched the CUDA sweeps
-wta_launches = 0  # B3: calls that launched the CUDA sweeps + WTA
+sweep_launches = 0  # B2: calls that launched the CUDA horizontal sweeps
+wta_launches = 0  # B3: calls that launched the CUDA vertical sweeps + WTA
+aggregate_launches = 0  # B8a: calls that launched the CUDA float sweeps
+
+# dtype codes of the C interface
+_CODE = {torch.int16: 0, torch.float32: 1, torch.bfloat16: 2}
 
 
 def horizontal_sweeps_plain(cost: torch.Tensor,
@@ -34,32 +45,35 @@ def horizontal_sweeps_plain(cost: torch.Tensor,
     return acc_t.permute(0, 3, 1, 2).contiguous()
 
 
-def down_sweeps_wta_plain(cost: torch.Tensor, acc: torch.Tensor,
-                          params: SGBMParams, return_margin: bool = False):
-    """Plain B3: downward sweeps added to ``acc``, then WTA -> (B, H, W)."""
-    return sgm_down_wta_dmajor(cost.permute(0, 1, 3, 2),
-                               acc.permute(0, 1, 3, 2), params,
-                               return_margin=return_margin)
+def vertical_sweeps_wta_plain(cost: torch.Tensor, acc: torch.Tensor,
+                              params: SGBMParams,
+                              return_margin: bool = False):
+    """Plain B3: the mode's vertical sweeps added to ``acc``, then WTA ->
+    (B, H, W)."""
+    return sgm_vertical_wta_dmajor(cost.permute(0, 1, 3, 2),
+                                   acc.permute(0, 1, 3, 2), params,
+                                   return_margin=return_margin)
 
 
 def _check_volume(cost: torch.Tensor, params: SGBMParams) -> None:
     _build.require(cost, torch.int16, 4, "sgm cost")
     if cost.shape[-1] != params.num_disparities or cost.shape[-1] > 128:
         raise ValueError("sgm: last axis must be num_disparities <= 128")
-    if acc_dtype_for_params(cost.dtype, params) != torch.int16:
-        raise ValueError("sgm: path totals overflow the int16 accumulator")
+    vertical_directions(params.num_paths)
+    check_integer_totals(params)
 
 
 def _sweep(lib, cost, acc_in, acc_out, dy, dx, p1, p2, stream) -> None:
     b, h, w, d = cost.shape
     _build.check(lib.v3d_sgm_sweep(
         cost.data_ptr(), None if acc_in is None else acc_in.data_ptr(),
-        acc_out.data_ptr(), b, h, w, d, dy, dx, p1, p2, stream),
-        "v3d_sgm_sweep")
+        acc_out.data_ptr(), b, h, w, d, dy, dx, float(p1), float(p2),
+        _CODE[cost.dtype], _CODE[acc_out.dtype], stream), "v3d_sgm_sweep")
 
 
 def horizontal_sweeps(cost: torch.Tensor, params: SGBMParams) -> torch.Tensor:
-    """B2: (B, H, W, D) int16 cost -> int16 sum of both horizontal paths."""
+    """B2: (B, H, W, D) int16 cost -> sum of both horizontal paths, int16 or
+    f32 by :func:`acc_dtype_for_params`."""
     global sweep_launches
     if not cost.is_cuda:
         return horizontal_sweeps_plain(cost, params)
@@ -67,30 +81,34 @@ def horizontal_sweeps(cost: torch.Tensor, params: SGBMParams) -> torch.Tensor:
     p1, p2 = integral_penalties(params.p1, params.p2)
     lib = _build.lib()
     stream = _build.stream_of(cost)
-    acc = torch.empty_like(cost)
+    acc = torch.empty(cost.shape, dtype=acc_dtype_for_params(cost.dtype,
+                                                              params),
+                      device=cost.device)
     _sweep(lib, cost, None, acc, 0, 1, p1, p2, stream)
     _sweep(lib, cost, acc, acc, 0, -1, p1, p2, stream)
     sweep_launches += 1
     return acc
 
 
-def down_sweeps_wta(cost: torch.Tensor, acc: torch.Tensor,
-                    params: SGBMParams, return_margin: bool = False):
-    """B3: adds the vertical and both diagonal top-down paths to ``acc``
-    (in place on the card) and returns the validated disparity (B, H, W)
-    f32, plus the uniqueness margin with ``return_margin``."""
+def vertical_sweeps_wta(cost: torch.Tensor, acc: torch.Tensor,
+                        params: SGBMParams, return_margin: bool = False):
+    """B3: adds the vertical paths of ``params.num_paths`` to ``acc`` (in
+    place on the card) -- top-down for 5 paths, top-down then bottom-up
+    for 4 and 8, none for 2 -- and returns the validated disparity
+    (B, H, W) f32, plus the uniqueness margin with ``return_margin``."""
     global wta_launches
     if not cost.is_cuda:
-        return down_sweeps_wta_plain(cost, acc, params, return_margin)
+        return vertical_sweeps_wta_plain(cost, acc, params, return_margin)
     _check_volume(cost, params)
-    _build.require(acc, torch.int16, 4, "sgm acc")
+    acc_dtype = acc_dtype_for_params(cost.dtype, params)
+    _build.require(acc, acc_dtype, 4, "sgm acc")
     if acc.shape != cost.shape:
         raise ValueError("sgm: acc and cost shapes differ")
     p1, p2 = integral_penalties(params.p1, params.p2)
     lib = _build.lib()
     stream = _build.stream_of(cost)
-    for dx in (0, 1, -1):
-        _sweep(lib, cost, acc, acc, 1, dx, p1, p2, stream)
+    for dy, dx in vertical_directions(params.num_paths):
+        _sweep(lib, cost, acc, acc, dy, dx, p1, p2, stream)
     b, h, w, d = cost.shape
     disp = torch.empty((b, h, w), dtype=torch.float32, device=cost.device)
     margin = torch.empty_like(disp) if return_margin else None
@@ -98,6 +116,48 @@ def down_sweeps_wta(cost: torch.Tensor, acc: torch.Tensor,
         acc.data_ptr(), disp.data_ptr(),
         None if margin is None else margin.data_ptr(), b, h, w, d,
         int(params.min_disparity), int(params.uniqueness_ratio),
-        int(params.disp12_max_diff), stream), "v3d_sgm_wta")
+        int(params.disp12_max_diff), _CODE[acc_dtype], stream),
+        "v3d_sgm_wta")
     wta_launches += 1
     return (disp, margin) if return_margin else disp
+
+
+def sgm_aggregate_pallas(cost: torch.Tensor, num_paths: int = 8,
+                         p1: float = 600.0, p2: float = 2400.0
+                         ) -> torch.Tensor:
+    """B8a: sum of the directional SGM path costs over 2, 4, 5 or 8 paths
+    of a (B, H, W, D) f32 or bf16 cost, as f32 (B, H, W, D); the port's
+    ``sgm_aggregate_pallas`` (the JAX package's public kernel API, same
+    arguments less ``interpret``). The twin is
+    :func:`video3d_tpu_torch.ops.stereo.sgm_aggregate`."""
+    global aggregate_launches
+    params = SGBMParams(num_paths=num_paths, p1=p1, p2=p2)
+    if not cost.is_cuda:
+        return sgm_aggregate(cost, params)
+    if cost.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"sgm_aggregate_pallas: f32 or bf16 cost, got "
+                         f"{cost.dtype}")
+    _build.require(cost, cost.dtype, 4, "sgm_aggregate_pallas cost")
+    if cost.shape[-1] > 128:
+        raise ValueError("sgm_aggregate_pallas: at most 128 disparities")
+    directions = vertical_directions(num_paths)
+    lib = _build.lib()
+    stream = _build.stream_of(cost)
+    acc = torch.empty(cost.shape, dtype=torch.float32, device=cost.device)
+    _sweep(lib, cost, None, acc, 0, 1, p1, p2, stream)
+    _sweep(lib, cost, acc, acc, 0, -1, p1, p2, stream)
+    for dy, dx in directions:
+        _sweep(lib, cost, acc, acc, dy, dx, p1, p2, stream)
+    aggregate_launches += 1
+    return acc
+
+
+def sgm_aggregate_pallas_dmajor(cost: torch.Tensor, num_paths: int = 8,
+                                p1: float = 600.0, p2: float = 2400.0
+                                ) -> torch.Tensor:
+    """SGM path aggregation, D-major: (B, H, D, W) f32 or bf16 cost ->
+    (B, H, D, W) f32; :func:`sgm_aggregate_pallas` between two permutes
+    (the JAX function only calls B2, so it has no kernel of its own)."""
+    out = sgm_aggregate_pallas(cost.transpose(2, 3).contiguous(), num_paths,
+                               p1, p2)
+    return out.transpose(2, 3).contiguous()

@@ -1,0 +1,160 @@
+"""Kernel B8b and B8c wrappers: the W-major horizontal route of the matcher.
+
+CUDA source: ``video3d_tpu_torch/csrc/wmajor.cu``. B8c replaces the TPU
+kernel ``video3d_tpu/kernels/sgm.py _directional_pass_wmajor``: one
+horizontal SGM sweep of the W-major ``(B, D, W, HL)`` volume (HL: image
+rows, padded or not) with f32 carries. B8b replaces ``transpose_to_wmajor``
+and ``transpose_from_wmajor``: exact layout changes between the port's
+``(B, H, W, D)`` volume and ``(B, D, W, HP)``, HP = H rounded up to 128,
+whose padding lanes the port writes as zero (no consumer reads them). The
+JAX package takes its ``mxu`` transposes only when W % 128 == 0; these take
+any width. The plain twins are :func:`wmajor_sweep_plain`,
+:func:`transpose_to_wmajor_plain` and :func:`transpose_from_wmajor_plain`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from video3d_tpu_torch.kernels import _build
+from video3d_tpu_torch.ops.stereo import (SGBMParams, acc_dtype_for_params,
+                                          check_integer_totals,
+                                          integral_penalties,
+                                          sgm_sweep_dmajor)
+
+transpose_launches = 0  # B8b: calls that launched a CUDA transpose
+sweep_launches = 0  # B8c: calls that launched the CUDA W-major sweep
+
+TILE = 128  # the TPU's lane tile: HP is H rounded up to it
+
+# dtype codes of the C interface, and the (cost, acc) pairs of the sweep
+_CODE = {torch.int16: 0, torch.float32: 1}
+_SWEEP_TYPES = {(torch.int16, torch.int16), (torch.int16, torch.float32),
+                (torch.float32, torch.float32)}
+
+
+def padded_rows(h: int) -> int:
+    """HP: ``h`` rounded up to :data:`TILE`."""
+    return -(-h // TILE) * TILE
+
+
+def transpose_to_wmajor_plain(cost: torch.Tensor) -> torch.Tensor:
+    """Plain B8b: (B, H, W, D) -> (B, D, W, HP), zero lanes h >= H."""
+    b, h, w, d = cost.shape
+    out = torch.zeros((b, d, w, padded_rows(h)), dtype=cost.dtype,
+                      device=cost.device)
+    out[..., :h] = cost.permute(0, 3, 2, 1)
+    return out
+
+
+def transpose_from_wmajor_plain(acc_t: torch.Tensor, h: int) -> torch.Tensor:
+    """Plain B8b inverse: (B, D, W, HP) -> (B, H, W, D), rows < ``h``."""
+    return acc_t[..., :h].permute(0, 3, 2, 1).contiguous()
+
+
+def _transpose(x: torch.Tensor, out: torch.Tensor, h: int,
+               to_wmajor: bool) -> torch.Tensor:
+    global transpose_launches
+    if x.dtype not in _CODE:
+        raise ValueError(f"wmajor transpose: int16 or f32, got {x.dtype}")
+    _build.require(x, x.dtype, 4, "wmajor transpose")
+    b, d, w, hp = out.shape if to_wmajor else x.shape
+    _build.check(_build.lib().v3d_wmajor_transpose(
+        x.data_ptr(), out.data_ptr(), b, h, w, d, hp, x.element_size(),
+        int(to_wmajor), _build.stream_of(x)), "v3d_wmajor_transpose")
+    transpose_launches += 1
+    return out
+
+
+def transpose_to_wmajor(cost: torch.Tensor) -> torch.Tensor:
+    """B8b: (B, H, W, D) int16 or f32 -> (B, D, W, HP), exact."""
+    if not cost.is_cuda:
+        return transpose_to_wmajor_plain(cost)
+    b, h, w, d = cost.shape
+    out = torch.empty((b, d, w, padded_rows(h)), dtype=cost.dtype,
+                      device=cost.device)
+    return _transpose(cost, out, h, True)
+
+
+def transpose_from_wmajor(acc_t: torch.Tensor, h: int) -> torch.Tensor:
+    """B8b inverse: (B, D, W, HP) int16 or f32 -> (B, H, W, D), exact."""
+    if not acc_t.is_cuda:
+        return transpose_from_wmajor_plain(acc_t, h)
+    b, d, w, hp = acc_t.shape
+    if not 0 < h <= hp:
+        raise ValueError(f"transpose_from_wmajor: h={h} outside (0, {hp}]")
+    out = torch.empty((b, h, w, d), dtype=acc_t.dtype, device=acc_t.device)
+    return _transpose(acc_t, out, h, False)
+
+
+def wmajor_sweep_plain(cost_t: torch.Tensor, acc_t, p1: float, p2: float,
+                       reverse: bool,
+                       acc_dtype: torch.dtype = torch.int16) -> torch.Tensor:
+    """Plain B8c: one horizontal sweep along W of (B, D, W, HL), added into
+    ``acc_t`` (a fresh accumulation of ``acc_dtype`` when None)."""
+    acc = None if acc_t is None else acc_t.permute(0, 2, 1, 3)
+    out = sgm_sweep_dmajor(cost_t.permute(0, 2, 1, 3), acc, (0,), p1, p2,
+                           reverse, acc_dtype)  # (B, W, D, HL)
+    return out.permute(0, 2, 1, 3).contiguous()
+
+
+def wmajor_sweep(cost_t: torch.Tensor, acc_t, p1: float, p2: float,
+                 reverse: bool,
+                 acc_dtype: torch.dtype = torch.int16) -> torch.Tensor:
+    """B8c: one horizontal sweep (left to right, or right to left with
+    ``reverse``) of the (B, D, W, HL) int16 or f32 cost, added into
+    ``acc_t`` (in place on the card) or into a fresh ``acc_dtype``
+    accumulator: int16 or f32 for an int16 cost, f32 for an f32 one."""
+    global sweep_launches
+    if acc_t is not None:
+        acc_dtype = acc_t.dtype
+    if not cost_t.is_cuda:
+        return wmajor_sweep_plain(cost_t, acc_t, p1, p2, reverse, acc_dtype)
+    if (cost_t.dtype, acc_dtype) not in _SWEEP_TYPES:
+        raise ValueError(f"wmajor sweep: no kernel for a {cost_t.dtype} cost "
+                         f"into a {acc_dtype} accumulator")
+    _build.require(cost_t, cost_t.dtype, 4, "wmajor cost")
+    if cost_t.dtype == torch.int16:
+        p1, p2 = integral_penalties(p1, p2)
+    b, d, w, hl = cost_t.shape
+    if d > 128:
+        raise ValueError("wmajor sweep: at most 128 disparities")
+    if acc_t is None:
+        acc_t = torch.empty(cost_t.shape, dtype=acc_dtype,
+                            device=cost_t.device)
+        acc_in = None
+    else:
+        _build.require(acc_t, acc_dtype, 4, "wmajor acc")
+        if acc_t.shape != cost_t.shape:
+            raise ValueError("wmajor sweep: acc and cost shapes differ")
+        acc_in = acc_t.data_ptr()
+    _build.check(_build.lib().v3d_wmajor_sweep(
+        cost_t.data_ptr(), acc_in, acc_t.data_ptr(), b, d, w, hl, float(p1),
+        float(p2), int(reverse), _CODE[cost_t.dtype], _CODE[acc_dtype],
+        _build.stream_of(cost_t)), "v3d_wmajor_sweep")
+    sweep_launches += 1
+    return acc_t
+
+
+def horizontal_sweeps_wmajor(cost: torch.Tensor, params: SGBMParams,
+                             route: str = "xla") -> torch.Tensor:
+    """Both horizontal sweeps of the (B, H, W, D) int16 cost on the W-major
+    layout (JAX ``_horizontal_passes_wmajor``): into (B, D, W, H) by
+    ``permute().contiguous()`` for ``route="xla"``, into (B, D, W, HP) by
+    B8b for ``"mxu"``, two B8c sweeps, and back. Equal to B2's
+    :func:`video3d_tpu_torch.kernels.sgm.horizontal_sweeps`."""
+    if route not in ("xla", "mxu"):
+        raise ValueError(f"W-major route must be xla or mxu: {route!r}")
+    check_integer_totals(params)
+    acc_dtype = acc_dtype_for_params(cost.dtype, params)
+    h = cost.shape[1]
+    if route == "mxu":
+        cost_t = transpose_to_wmajor(cost)
+    else:
+        cost_t = cost.permute(0, 3, 2, 1).contiguous()  # (B, D, W, H)
+    acc_t = wmajor_sweep(cost_t, None, params.p1, params.p2, False,
+                         acc_dtype)
+    acc_t = wmajor_sweep(cost_t, acc_t, params.p1, params.p2, True)
+    if route == "mxu":
+        return transpose_from_wmajor(acc_t, h)
+    return acc_t.permute(0, 3, 2, 1).contiguous()

@@ -3,15 +3,20 @@
 Counterpart of :mod:`video3d_tpu.ops.stereo` for the int16 formulation
 the TPU path ships (``ops/stereo.py:655-722`` there): x-Sobel prefilter,
 symmetric Birchfield-Tomasi cost, 5x5 zero-padded box sum rounded half to
-even into int16, two horizontal SGM sweeps, the three downward sweeps
-(OpenCV MODE_SGBM, 5 paths), winner-take-all with sub-pixel refinement,
-uniqueness and left-right checks, and the banded speckle vote.
+even into int16, the SGM path sweeps of OpenCV's modes (2 paths: the two
+horizontals; 4: + vertical both ways; 5, MODE_SGBM: + the three downward
+directions; 8, MODE_HH: + vertical and both diagonals both ways, the last
+sweep bottom-up), winner-take-all with sub-pixel refinement, uniqueness
+and left-right checks, and the banded speckle vote. The accumulator is
+int16 where the path total provably fits (:func:`acc_dtype_for_params`)
+and f32 otherwise (8 paths at the defaults), as in the JAX package.
 
 The plain twins here keep the JAX package's D-major ``(B, H, D, W)``
-layout at their signatures, so tests compare like with like. The kernels
-(:mod:`video3d_tpu_torch.kernels`) keep the volume as ``(B, H, W, D)``
-between themselves; their wrappers pick the CUDA kernel for a CUDA tensor
-and the twin for a CPU tensor.
+layout at their signatures, so tests compare like with like, except
+:func:`sgm_aggregate`, which keeps the ``(B, H, W, D)`` of the JAX
+function of that name. The kernels (:mod:`video3d_tpu_torch.kernels`)
+keep the volume as ``(B, H, W, D)`` between themselves; their wrappers
+pick the CUDA kernel for a CUDA tensor and the twin for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -20,11 +25,12 @@ import dataclasses
 
 import torch
 
-BIG = 1e9
+BIG = 1e9  # carry sentinel of the float sweeps
 # int16 accumulator bound: every 5-path total at the defaults stays below
 # it (see acc_dtype_for_params), so int16 accumulation is exact
 BIG_I16 = 30000
 # carry sentinel of the integer sweeps: above any reachable path value
+# (integer path totals must stay below it: check_integer_totals)
 _SENT = 1 << 20
 
 
@@ -73,13 +79,28 @@ def acc_dtype_for_params(cost_dtype: torch.dtype,
     One direction's path value is at most cost_max + P2, cost_max =
     block**2 * 2 * prefilter_cap; the total is num_paths times that.
     int16 is exact iff that total stays below BIG_I16 (5-path defaults:
-    5 * (1550 + 2400) = 19750).
+    5 * (1550 + 2400) = 19750); otherwise f32, which holds every integer
+    total exactly (8-path MODE_HH at the defaults: 31600).
     """
     if cost_dtype.is_floating_point:
         return torch.float32
+    return (torch.int16 if path_total_bound(params) < BIG_I16
+            else torch.float32)
+
+
+def path_total_bound(params: SGBMParams) -> int:
+    """Largest path total an integer cost volume of ``params`` can reach."""
     cost_max = params.block_size**2 * 2 * params.prefilter_cap
-    bound = params.num_paths * (cost_max + params.p2)
-    return torch.int16 if bound < BIG_I16 else torch.float32
+    return int(params.num_paths * (cost_max + params.p2))
+
+
+def check_integer_totals(params: SGBMParams) -> None:
+    """Raise where an integer path total could reach the sweeps' sentinel
+    (the integer twins and kernels compare against it)."""
+    if path_total_bound(params) >= _SENT:
+        raise ValueError(
+            f"SGM path totals up to {path_total_bound(params)} reach the "
+            f"integer sentinel {_SENT}: lower p2 or num_paths")
 
 
 # ---------------------------------------------------------------------------
@@ -200,8 +221,32 @@ def cost_volume_dmajor(
 
 
 # ---------------------------------------------------------------------------
-# SGM sweeps (plain twins of kernels B2 and B3)
+# SGM sweeps (plain twins of kernels B2, B3 and B8a)
 # ---------------------------------------------------------------------------
+
+# the matcher's horizontal routes: the (B, W, D, H) sweeps of B2, or the
+# W-major (B, D, W, H) sweeps of B8c behind torch permutes ("xla") or the
+# B8b transposes ("mxu"); the JAX package's VIDEO3D_TPU_SGM_TRANSPOSE
+HORIZONTAL_ROUTES = ("legacy", "xla", "mxu")
+
+
+def vertical_shifts(num_paths: int) -> tuple:
+    """Lateral shifts of the vertical sweeps of an SGM mode: none for 2
+    paths, the vertical (0,) for 4, the vertical and both diagonals for 5
+    (top-down only, OpenCV MODE_SGBM) and 8 (both ways, MODE_HH)."""
+    shifts = {2: (), 4: (0,), 5: (0, 1, -1), 8: (0, 1, -1)}
+    if num_paths not in shifts:
+        raise ValueError(f"num_paths must be 2, 4, 5 or 8: {num_paths}")
+    return shifts[num_paths]
+
+
+def vertical_directions(num_paths: int) -> tuple:
+    """(dy, dx) steps of the vertical sweeps in the TPU kernels' order:
+    top-down (dy 1) with each shift of :func:`vertical_shifts`, then, for
+    4 and 8 paths, bottom-up (dy -1); dx 1 follows the pixel at x - 1."""
+    shifts = vertical_shifts(num_paths)
+    dys = (1,) if num_paths == 5 else (1, -1)
+    return tuple((dy, dx) for dy in dys for dx in shifts)
 
 
 def _shift_lateral(prev: torch.Tensor, s: int) -> torch.Tensor:
@@ -214,14 +259,14 @@ def _shift_lateral(prev: torch.Tensor, s: int) -> torch.Tensor:
     return torch.cat([prev[..., 1:], zero], dim=-1)
 
 
-def _sgm_step(prev: torch.Tensor, c: torch.Tensor, p1: int,
-              p2: int) -> torch.Tensor:
+def _sgm_step(prev: torch.Tensor, c: torch.Tensor, p1, p2,
+              sent) -> torch.Tensor:
     """L = C + min(L', L'(d+-1) + P1, min L' + P2) - min L' over axis 1
-    of (B, D, W) int32, with the sentinel past both ends of d."""
+    of (B, D, W), with ``sent`` past both ends of d."""
     m = prev.amin(dim=1, keepdim=True)
-    sent = torch.full_like(prev[:, :1], _SENT)
-    up = torch.cat([prev[:, 1:], sent], dim=1)
-    dn = torch.cat([sent, prev[:, :-1]], dim=1)
+    edge = torch.full_like(prev[:, :1], sent)
+    up = torch.cat([prev[:, 1:], edge], dim=1)
+    dn = torch.cat([edge, prev[:, :-1]], dim=1)
     best = torch.minimum(torch.minimum(prev, m + p2),
                          torch.minimum(up, dn) + p1)
     return c + best - m
@@ -244,33 +289,85 @@ def sgm_sweep_dmajor(
     reverse: bool,
     acc_dtype: torch.dtype = torch.int16,
 ) -> torch.Tensor:
-    """Plain twin of B2 (JAX ``_directional_pass_dmajor``).
+    """Plain twin of B2 (JAX ``_directional_pass_dmajor``) and of the
+    sweeps of B8a (``_directional_pass``).
 
-    Sweeps over axis 1 (scan lines) of the integer (B, R, D, W) ``cost``
-    for each lateral shift in ``shifts`` (0 straight, +-1 diagonal),
-    carries starting at zero, and adds every direction's path values into
-    ``acc`` (a fresh accumulation of ``acc_dtype`` when None).
+    Sweeps over axis 1 (scan lines) of the (B, R, D, W) ``cost`` for each
+    lateral shift in ``shifts`` (0 straight, +-1 diagonal), carries starting
+    at zero, and adds every direction's path values into ``acc`` (a fresh
+    accumulation of ``acc_dtype`` when None) in the order of ``shifts``.
+    An integer cost sweeps in int32 with whole penalties, exact into an
+    int16 or f32 accumulator; a float cost (f32 or bf16) in f32 with the
+    1e9 sentinel and the TPU kernel's order of operations, into f32.
     """
-    p1, p2 = integral_penalties(p1, p2)
+    if cost.dtype.is_floating_point:
+        ct, sent = torch.float32, BIG
+        p1, p2 = float(p1), float(p2)
+    else:
+        ct, sent = torch.int32, _SENT
+        p1, p2 = integral_penalties(p1, p2)
+    out_dtype = acc.dtype if acc is not None else acc_dtype
+    if ct == torch.float32 and out_dtype != torch.float32:
+        raise ValueError("a float cost sweeps into an f32 accumulator")
     b, r, d, w = cost.shape
-    out = torch.empty(cost.shape, dtype=acc.dtype if acc is not None
-                      else acc_dtype, device=cost.device)
-    carries = [torch.zeros((b, d, w), dtype=torch.int32, device=cost.device)
+    out = torch.empty(cost.shape, dtype=out_dtype, device=cost.device)
+    carries = [torch.zeros((b, d, w), dtype=ct, device=cost.device)
                for _ in shifts]
     for y in (range(r - 1, -1, -1) if reverse else range(r)):
-        c = cost[:, y].to(torch.int32)
-        total = (acc[:, y].to(torch.int32) if acc is not None
-                 else torch.zeros_like(c))
+        c = cost[:, y].to(ct)
+        total = acc[:, y].to(ct) if acc is not None else torch.zeros_like(c)
         for k, s in enumerate(shifts):
-            carries[k] = _sgm_step(_shift_lateral(carries[k], s), c, p1, p2)
+            carries[k] = _sgm_step(_shift_lateral(carries[k], s), c, p1, p2,
+                                   sent)
             total = total + carries[k]
         out[:, y] = total.to(out.dtype)
     return out
 
 
+def sgm_vertical_dmajor(cost: torch.Tensor, acc: torch.Tensor,
+                        params: SGBMParams) -> torch.Tensor:
+    """The vertical sweeps of ``params.num_paths`` over (B, H, D, W) added
+    to ``acc``, in the TPU kernels' order: top-down with the shifts of
+    :func:`vertical_shifts`, then, for 4 and 8 paths, the same bottom-up
+    (the closing sweep)."""
+    shifts = vertical_shifts(params.num_paths)
+    if not shifts:
+        return acc
+    total = sgm_sweep_dmajor(cost, acc, shifts, params.p1, params.p2, False)
+    if params.num_paths != 5:
+        total = sgm_sweep_dmajor(cost, total, shifts, params.p1, params.p2,
+                                 True)
+    return total
+
+
+def sgm_aggregate(cost: torch.Tensor, params: SGBMParams) -> torch.Tensor:
+    """Plain twin of B8a (JAX ``sgm_aggregate_pallas``; the JAX function
+    of this name computes the same sums in another order): the sum of the
+    ``params.num_paths`` directional path costs of a (B, H, W, D) f32 or
+    bf16 cost, as f32 (B, H, W, D).
+
+    Direction by direction in the TPU kernel's order: the horizontal
+    sweeps (left to right, then right to left), then
+    :func:`sgm_vertical_dmajor`.
+    """
+    if not cost.dtype.is_floating_point:
+        raise ValueError(f"sgm_aggregate takes an f32 or bf16 cost: "
+                         f"{cost.dtype}")
+    vertical_shifts(params.num_paths)
+    cost_t = cost.permute(0, 2, 3, 1)  # (B, W, D, H): scan lines along W
+    acc_t = sgm_sweep_dmajor(cost_t, None, (0,), params.p1, params.p2, False,
+                             torch.float32)
+    acc_t = sgm_sweep_dmajor(cost_t, acc_t, (0,), params.p1, params.p2, True)
+    acc = sgm_vertical_dmajor(cost.permute(0, 1, 3, 2),
+                              acc_t.permute(0, 3, 2, 1), params)
+    return acc.permute(0, 1, 3, 2).contiguous()
+
+
 def wta_total_dmajor(total: torch.Tensor, params: SGBMParams,
                      return_margin: bool = False):
-    """Winner-take-all on the complete integer path total (B, H, D, W).
+    """Winner-take-all on the complete path total (B, H, D, W): int16, or
+    f32 holding integers (the f32 accumulator of an integer cost, exact in
+    int32).
 
     Semantics of the JAX ``_final_wta_kernel_dmajor``: first minimum,
     parabolic sub-pixel step in f32 (clipped to +-0.5, zero at both ends
@@ -339,13 +436,14 @@ def wta_total_dmajor(total: torch.Tensor, params: SGBMParams,
     return out
 
 
-def sgm_down_wta_dmajor(cost: torch.Tensor, acc: torch.Tensor,
-                        params: SGBMParams, return_margin: bool = False):
-    """Plain twin of B3: the top-down vertical and both diagonal sweeps
-    of (B, H, D, W) ``cost`` added to the horizontal ``acc``, then WTA."""
-    total = sgm_sweep_dmajor(cost, acc, (0, 1, -1), params.p1, params.p2,
-                             False)
-    return wta_total_dmajor(total, params, return_margin=return_margin)
+def sgm_vertical_wta_dmajor(cost: torch.Tensor, acc: torch.Tensor,
+                            params: SGBMParams, return_margin: bool = False):
+    """Plain twin of B3 (JAX ``sgm_wta_pallas_dmajor`` after its
+    horizontal passes): the vertical sweeps of :func:`sgm_vertical_dmajor`
+    added to the horizontal ``acc`` of (B, H, D, W) ``cost``, then WTA;
+    2 paths is plain WTA of ``acc``."""
+    return wta_total_dmajor(sgm_vertical_dmajor(cost, acc, params), params,
+                            return_margin=return_margin)
 
 
 # ---------------------------------------------------------------------------
@@ -379,33 +477,41 @@ def sgbm_disparity(
     params: SGBMParams = SGBMParams(),
     apply_speckle: bool = True,
     return_margin: bool = False,
+    horizontal_route: str = "legacy",
 ):
     """Full semi-global matcher: (B, H, W) gray pair -> float disparity.
 
-    Cost volume (B1) -> forward and backward horizontal sweeps (B2) ->
-    downward 3-direction sweep and WTA (B3) -> speckle vote (B4), on any
-    width. CUDA tensors run the kernels, CPU tensors their plain twins.
-    ``return_margin`` also returns the texture-gated match confidence, as
-    the JAX function does.
+    Cost volume (B1) -> forward and backward horizontal sweeps (B2, or B8c
+    on the W-major volume) -> the vertical sweeps of ``params.num_paths``
+    and WTA (B3) -> speckle vote (B4), on any width. The accumulator is
+    int16 or f32 by :func:`acc_dtype_for_params`. ``horizontal_route``
+    (:data:`HORIZONTAL_ROUTES`) picks the horizontal sweeps' layout, as the
+    JAX package's ``VIDEO3D_TPU_SGM_TRANSPOSE``; every route gives the same
+    disparities. CUDA tensors run the kernels, CPU tensors their plain
+    twins. ``return_margin`` also returns the texture-gated match
+    confidence, as the JAX function does.
     """
-    from video3d_tpu_torch.kernels import costvol, sgm, speckle
+    from video3d_tpu_torch.kernels import costvol, sgm, speckle, wmajor
 
-    if params.num_paths != 5:
-        raise NotImplementedError(
-            f"num_paths={params.num_paths} is not yet ported (5 only)")
     if params.min_disparity < 0:
         raise NotImplementedError("negative min_disparity is not yet ported")
-    if acc_dtype_for_params(torch.int16, params) != torch.int16:
-        raise NotImplementedError(
-            "params whose path total overflows int16 are not yet ported")
+    if horizontal_route not in HORIZONTAL_ROUTES:
+        raise ValueError(f"horizontal_route must be one of "
+                         f"{HORIZONTAL_ROUTES}: {horizontal_route!r}")
+    vertical_shifts(params.num_paths)
+    check_integer_totals(params)
     # sentinel-free int16 cost: out-of-frame matches cost the max valid
     # per-pixel cost; the WTA strip mask keeps them invalid
     raw_invalid = 2.0 * params.prefilter_cap
     res = costvol.cost_volume(left_gray, right_gray, params, raw_invalid,
                               return_filtered_left=return_margin)
     cost, lf = res if return_margin else (res, None)
-    acc = sgm.horizontal_sweeps(cost, params)
-    res = sgm.down_sweeps_wta(cost, acc, params, return_margin=return_margin)
+    if horizontal_route == "legacy":
+        acc = sgm.horizontal_sweeps(cost, params)
+    else:
+        acc = wmajor.horizontal_sweeps_wmajor(cost, params, horizontal_route)
+    res = sgm.vertical_sweeps_wta(cost, acc, params,
+                                  return_margin=return_margin)
     disp, margin = res if return_margin else (res, None)
     if apply_speckle and params.speckle_window_size > 0:
         disp = speckle.speckle_filter(

@@ -2,11 +2,11 @@
 
 Per batch, on one device: SBS split, 2x Lanczos-4 unsqueeze, BT.601 gray,
 the semi-global matcher (:func:`video3d_tpu_torch.ops.stereo.
-sgbm_disparity`, whose four kernels run on a CUDA device), the optional
-background-extension hole fill, the optional neural guidance blend, clamp
-of invalid pixels to 0, fixed-range or per-frame normalisation, uint16
-out. Host I/O -- decode, PNG16 writing, cache keys -- is the JAX package's
-JAX-free ``video3d_tpu.core``.
+sgbm_disparity` in any of its modes and horizontal routes, whose kernels
+run on a CUDA device), the optional background-extension hole fill, the
+optional neural guidance blend, clamp of invalid pixels to 0, fixed-range
+or per-frame normalisation, uint16 out. Host I/O -- decode, PNG16
+writing, cache keys -- is the port's own :mod:`video3d_tpu_torch.core`.
 
 Guidance (``guidance='dpt'``): DPT-large monocular depth
 (:mod:`video3d_tpu_torch.models.dpt`, attention kernel B7) on every Kth
@@ -30,16 +30,18 @@ from typing import Callable, Iterable, Optional
 import numpy as np
 import torch
 
-from video3d_tpu.core import DepthMapWriter, VideoReader, get_video_info
-from video3d_tpu.core.cache import (create_work_directory, depth_cache_dir,
-                                    is_depth_cached_range)
+from video3d_tpu_torch.core import (DepthMapWriter, VideoReader,
+                                    create_work_directory, depth_cache_dir,
+                                    get_video_info, is_depth_cached_range)
 from video3d_tpu_torch.models.mono import ssi_align
 from video3d_tpu_torch.ops.boxsum import box_sum_2d
 from video3d_tpu_torch.ops.fill import fill_holes as fill_holes_op
 from video3d_tpu_torch.ops.flow import FlowEMAParams
 from video3d_tpu_torch.ops.image import (resize2d, rgb_to_gray, split_sbs,
                                          unsqueeze_width)
-from video3d_tpu_torch.ops.stereo import SGBMParams, sgbm_disparity
+from video3d_tpu_torch.ops.stereo import (HORIZONTAL_ROUTES, SGBMParams,
+                                          acc_dtype_for_params,
+                                          sgbm_disparity)
 from video3d_tpu_torch.parallel.temporal import (TemporalFlowEMAStream,
                                                  TemporalMedianStream)
 
@@ -204,10 +206,14 @@ def depth_batch_pipeline(
     blend: str = "confidence",
     fill_holes: bool = False,
     trust_scale: int = 1,
+    horizontal_route: str = "legacy",
 ):
     """uint8 SBS RGB batch (B, H, W, 3) -> uint16 depth batch (B, H, W').
 
     W' is W (unsqueezed anamorphic) or W//2. Runs on ``frames.device``.
+    ``params.num_paths`` picks the matcher's mode (2, 4, 5 or 8 paths) and
+    ``horizontal_route`` (legacy|xla|mxu) the layout of its horizontal
+    sweeps, with equal results (:func:`sgbm_disparity`).
     ``return_guide``: also return the bilinear 1/``guide_scale`` gray of
     the left eye, (B, ceil(H/s), ceil(W'/s)) f32 -- the motion guide of
     the flow smoother.
@@ -223,7 +229,8 @@ def depth_batch_pipeline(
     gl, gr = rgb_to_gray(left).contiguous(), rgb_to_gray(right).contiguous()
     want_margin = guidance_fn is not None and blend == "confidence"
     res = sgbm_disparity(gl, gr, params, apply_speckle=apply_speckle,
-                         return_margin=want_margin)
+                         return_margin=want_margin,
+                         horizontal_route=horizontal_route)
     disp, margin = res if want_margin else (res, None)
     if fill_holes:
         # before the blend: the margin at former holes stays ~0, so the
@@ -264,6 +271,7 @@ class StereoDepthExtractor:
         guidance_every: int = 4,
         trust_scale: int = 1,
         params: SGBMParams = SGBMParams(),
+        horizontal_route: str = "legacy",
         device=None,
     ):
         """``device`` None means ``cuda``, which must be available; the
@@ -276,7 +284,10 @@ class StereoDepthExtractor:
         ``guidance_every`` K runs the guidance on every Kth frame (K=4,
         the JAX default), ``blend`` confidence|fixed (``stereo_weight`` is
         the fixed blend's), ``trust_scale`` 1|2|4, ``fill_holes`` None =
-        on exactly when guidance is active."""
+        on exactly when guidance is active. ``params.num_paths`` 2, 4, 5
+        (default, MODE_SGBM) or 8 (MODE_HH) picks the matcher's mode;
+        ``horizontal_route`` legacy|xla|mxu the layout of its horizontal
+        sweeps (the same maps, so not part of the cache key)."""
         if guidance in ("crestereo", "mono"):
             raise NotImplementedError(
                 f"guidance={guidance!r} is not yet ported (none|dpt)")
@@ -313,6 +324,10 @@ class StereoDepthExtractor:
             raise ValueError(f"trust_scale must be 1, 2 or 4: {trust_scale}")
         self.trust_scale = int(trust_scale)
         self.params = params
+        if horizontal_route not in HORIZONTAL_ROUTES:
+            raise ValueError(f"horizontal_route must be one of "
+                             f"{HORIZONTAL_ROUTES}: {horizontal_route}")
+        self.horizontal_route = horizontal_route
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -363,10 +378,10 @@ class StereoDepthExtractor:
         """Frames per batch from free device memory.
 
         The live set peaks in the sweeps: the int16 cost volume and the
-        int16 accumulator, H*W'*D each, plus the uploaded frames and maps;
-        1.5x headroom over (2 + 2 + 2) bytes per volume element, capped at
-        8 (the JAX stage's cap). A CPU device assumes 16 GiB, as the JAX
-        stage does without memory stats.
+        accumulator (int16, or f32 for 8 paths), H*W'*D each, plus the
+        uploaded frames and maps; 1.5x headroom over (2 + acc + 2) bytes
+        per volume element, capped at 8 (the JAX stage's cap). A CPU device
+        assumes 16 GiB, as the JAX stage does without memory stats.
         """
         if self.device.type == "cuda":
             free, _ = torch.cuda.mem_get_info(self.device)
@@ -374,7 +389,8 @@ class StereoDepthExtractor:
             free = 16 * 2**30
         w_eye = width // 2 * (2 if self.unsqueeze_anamorphic else 1)
         vol = height * w_eye * self.params.num_disparities
-        per_frame = int((2 + 2 + 2) * vol * 1.5)
+        acc = acc_dtype_for_params(torch.int16, self.params).itemsize
+        per_frame = int((2 + acc + 2) * vol * 1.5)
         return min(max(1, int(free * 0.75 / per_frame)), 8)
 
     def _model_key(self) -> str:
@@ -483,6 +499,7 @@ class StereoDepthExtractor:
                     blend=self.blend,
                     fill_holes=self.fill_holes,
                     trust_scale=self.trust_scale,
+                    horizontal_route=self.horizontal_route,
                 )
                 if want_guide:
                     depth, guide = depth
