@@ -17,7 +17,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    at the same shape; the six int16 probe ops (P); B5 flow warp at
    1080x1920 with r = 16 and at 270x480 with r = 6, B6 flow match at
    270x480; B7a/B7b attention at DPT-large's (2, 16, 577, 64) in bf16 and
-   f32 and at two other sequence lengths. B1, B2, B4, B8a, B8b, B8c and P
+   f32, at the K=1 hybrid's (8, 16, 577, 64) and at two other sequence
+   lengths. B1, B2, B4, B8a, B8b, B8c and P
    must be bit-exact; B3 must have identical validity and disparity within
    1e-5 (margin within rtol 1e-6); B5 within 1e-5, B6 within 2e-4 px; B7
    within 1e-5 in f32 and, in bf16, within 2^-7 |twin| + 2^-10 (about one
@@ -25,7 +26,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    is printed beside its twin's, its bound (the larger of the bytes it
    must move over 3.35 TB/s and its operations over the unit's peak) and,
    where one PyTorch call computes the same function, that call's time
-   (SDPA for B7, ``permute().contiguous()`` for B8b);
+   (SDPA for B7, ``permute().contiguous()`` for B8b); for B7 and SDPA also
+   the device time per call from a ``torch.profiler`` trace, since their
+   back-to-back event times include each call's host cost;
 4. drives each path through the entry points a user calls, with every
    launch count set to 0 just before and read just after, and fails if a
    kernel of the path never ran: the stereo-only depth stage
@@ -119,6 +122,22 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int):
+    """Mean device milliseconds per call of ``fn``: the kernels' summed
+    time in a ``torch.profiler`` trace of ``reps`` calls, or None when the
+    trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.device_time_total for e in prof.key_averages())
+    return total_us / 1e3 / reps if total_us > 0 else None
 
 
 def bound(nbytes: float, ops: float = 0.0, unit: str = "f32"):
@@ -515,12 +534,14 @@ def main() -> int:
             work=(6 * n6 * 4, 25 * (2 * 7 + 6) * n6))
     del img, fy, fx, got, want, cur, prev_w
 
-    # B7a (8 heads per block) and B7b (one) at DPT-large's attention shape
-    # (two keyframes, 16 heads, 577 tokens, head dim 64), in both dtypes,
+    # B7a (attention_multihead) and B7b (attention_oneblock), one launch,
+    # at DPT-large's attention shape (two keyframes, 16 heads, 577 tokens,
+    # head dim 64) and the K=1 hybrid's (eight keyframes), in both dtypes,
     # and at two more sequence lengths; 577 is not a multiple of the
     # kernel's 64-key tile, nor are 130 and 1500
     b7 = {}
-    for shape in ((2, 16, 577, 64), (1, 6, 130, 16), (1, 4, 1500, 32)):
+    for shape in ((2, 16, 577, 64), (8, 16, 577, 64), (1, 6, 130, 16),
+                  (1, 4, 1500, 32)):
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
                 np.float32)).to(dev, dtype) for _ in range(3))
@@ -545,26 +566,32 @@ def main() -> int:
                           f"{name} bf16 vs twin at {shape}: {frac} in bound")
                 key = (name, shape, dtype)
                 b7[key] = dict(err=max_err, frac=frac)
+                line = (f"{name} attention {shape} {str(dtype)[6:]}: max "
+                        f"|err| {max_err:.3e}, {frac:.6f} of outputs in bound")
                 if shape[2] == 577:
+                    sdpa = (lambda: torch.nn.functional.
+                            scaled_dot_product_attention(q, k, v, scale=sm))
                     b7[key]["ms"] = cuda_ms(fn, 20)
                     b7[key]["plain_ms"] = cuda_ms(
                         lambda: attention_plain(q, k, v, sm), 20)
-                    b7[key]["library_ms"] = cuda_ms(
-                        lambda: torch.nn.functional.
-                        scaled_dot_product_attention(q, k, v, scale=sm), 20)
-                print(f"{name} attention {shape} {str(dtype)[6:]}: max |err| "
-                      f"{max_err:.3e}, {frac:.6f} of outputs in bound"
-                      + (f"; {b7[key]['ms']:.4f} ms/call vs plain "
-                         f"{b7[key]['plain_ms']:.4f}, SDPA "
-                         f"{b7[key]['library_ms']:.4f} on {card}"
-                         if "ms" in b7[key] else ""))
+                    b7[key]["library_ms"] = cuda_ms(sdpa, 20)
+                    line += (f"; {b7[key]['ms']:.4f} ms/call vs plain "
+                             f"{b7[key]['plain_ms']:.4f}, SDPA "
+                             f"{b7[key]['library_ms']:.4f} on {card}")
+                    if dtype == torch.bfloat16:
+                        dev_b7, dev_sdpa = device_ms(fn, 20), device_ms(sdpa, 20)
+                        b7[key]["dev_ms"] = dev_b7
+                        line += "; device time (torch.profiler) " + (
+                            f"{dev_b7:.4f} vs SDPA {dev_sdpa:.4f} ms/call"
+                            if dev_b7 and dev_sdpa else "not measured")
+                print(line)
     del q, k, v, want, got, err
-    # one kernel and one launch count: the DPT path calls B7a's entry at
-    # one head per block, B7b's setting
+    # one kernel and one launch count: the DPT path calls B7a's entry,
+    # whose heads_per_step changes nothing on the GPU
     for name, label, src_line, per_block in (
-            ("B7a", "attention_multihead", 84, "8 heads per block"),
-            ("B7b", "attention_oneblock", 116,
-             "1 head per block (the DPT path's setting)")):
+            ("B7a", "attention_multihead", 84,
+             "heads_per_step 8, the DPT path's call"),
+            ("B7b", "attention_oneblock", 116, "the same launch")):
         key = (name, (2, 16, 577, 64), torch.bfloat16)
         n_qkv = 2 * 16 * 577 * 64
         add_row(name, at=f"ms/call at (2, 16, 577, 64) bf16 (one ViT layer, "
@@ -957,9 +984,16 @@ def main() -> int:
         for kev in (4, 1):
             ms_h = cuda_ms(lambda: depth_batch_pipeline(
                 xh, guidance_fn=gfn, guidance_every=kev, fill_holes=True), 3)
+            # 24 ViT layers, one B7 call each, on the batch's 8 / K keyframes
+            dev_b7 = b7[("B7b", (8 // kev, 16, 577, 64),
+                         torch.bfloat16)].get("dev_ms")
+            share = ("B7 not measured" if dev_b7 is None else
+                     f"B7 24 x {dev_b7:.4f} ms device = "
+                     f"{100.0 * 24 * dev_b7 / ms_h:.2f}% of the batch")
             print(f"hybrid stage K={kev}: {ms_h:.3f} ms per batch of 8 = "
                   f"{8000.0 / ms_h:.2f} frames/s (stereo-only on the same "
-                  f"batch {8000.0 / ms_stereo:.2f}; device time) on {card}")
+                  f"batch {8000.0 / ms_stereo:.2f}; device time; {share}) "
+                  f"on {card}")
         print(f"hybrid path incl. PNG writes: {n_hyb / hyb_s:.2f} frames/s on "
               f"{card}")
         del xh, x384, lh

@@ -26,8 +26,12 @@ Every TPU kernel of the JAX package (each function reaching
  B6   kernels/flowmatch.py:122 flow_match_pallas              csrc/flowmatch.cu, kernels/flowmatch.py
  B7a  kernels/attention.py:84 attention_multihead             csrc/attention.cu, kernels/attention.py
  B7b  kernels/attention.py:116 attention_oneblock             csrc/attention.cu, kernels/attention.py
-                                                              (one kernel template at 8 and 1
-                                                              heads per block; one launch count)
+                                                              (redesigned: one kernel and one
+                                                              launch for both, no head loop, as
+                                                              heads_per_step is a TPU grouping;
+                                                              bf16 on wgmma with TMA-fed K/V
+                                                              tiles, f32 on the CUDA cores; one
+                                                              launch count)
  B8a  kernels/sgm.py:119 _directional_pass                    csrc/sgm.cu (the sweep template at
       (via sgm_aggregate_pallas :148)                         f32/bf16 cost), kernels/sgm.py
                                                               sgm_aggregate_pallas

@@ -59,7 +59,7 @@ _SIGNATURES = {
     # flowmatch.cu
     "v3d_flow_match": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     # attention.cu
-    "v3d_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    "v3d_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
 }
 
 _lib = None
@@ -149,9 +149,12 @@ def check(err: int, name: str) -> None:
 
 
 def stream_of(t) -> int:
+    """The raw handle of PyTorch's current stream on ``t``'s device: the
+    value of ``torch.cuda.current_stream(t.device).cuda_stream``, read
+    without building a Stream object at every launch."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def require(t, dtype, ndim: int, name: str) -> None:

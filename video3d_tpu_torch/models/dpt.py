@@ -226,12 +226,11 @@ class ViTSelfAttention(nn.Module):
             return t.reshape(b, s, self.num_heads,
                              self.head_dim).transpose(1, 2).contiguous()
 
-        # one head per block: grouping heads amortises the TPU's per-step
-        # cost, but on the GPU it only serialises them (8 per block: 0.87
-        # vs 0.24 ms per call at DPT-large's (2, 16, 577, 64) on an H100)
+        # kernel B7; heads_per_step is a TPU grouping and changes nothing
+        # on the GPU, so the JAX default stands
         out = attention_kernels.attention_multihead(
             split(self.query(x)), split(self.key(x)), split(self.value(x)),
-            sm_scale=1.0 / float(self.head_dim) ** 0.5, heads_per_step=1)
+            sm_scale=1.0 / float(self.head_dim) ** 0.5)
         return self.output(out.transpose(1, 2).reshape(b, s, h))
 
 
