@@ -11,7 +11,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    native-int16 variant), B2 horizontal sweeps, B3 vertical sweeps + WTA
    and B4 speckle at two 1080p frames, 1920-wide eyes, D=64, for MODE_SGBM
    (5 paths, int16 accumulator) and B2/B3 again for MODE_HH (8 paths, f32
-   accumulator, bottom-up close); B8a (``sgm_aggregate_pallas``, 8 paths)
+   accumulator, bottom-up close), B1, B2 and B3 again at the stage's batch
+   of 8 (rows ``...@8``), and B1 and B3 at the small shapes of
+   ``video3d_tpu_torch/tools/card_checks.py`` (ragged widths, short
+   heights, D from 16 to 128, every SGM mode; gated, not timed); B8a
+   (``sgm_aggregate_pallas``, 8 paths)
    on f32 and bf16 cost, B8c (W-major sweeps) forward and reverse, and the
    B8b round trip (equal to the input and to ``permute().contiguous()``)
    at the same shape; the six int16 probe ops (P); B5 flow warp at
@@ -140,6 +144,18 @@ def device_ms(fn, reps: int):
     return total_us / 1e3 / reps if total_us > 0 else None
 
 
+def timed(fn):
+    """(result, device milliseconds) of one call of ``fn``."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def bound(nbytes: float, ops: float = 0.0, unit: str = "f32"):
     """(ms, "bytes" | "operations"): the least time the card could take to
     move ``nbytes`` (each input read once, each output written once) and
@@ -212,7 +228,7 @@ def main() -> int:
                                                 disparity_to_uint16,
                                                 gray_pair, guidance_blend,
                                                 rgb_eyes)
-    from video3d_tpu_torch.tools import probe_i16
+    from video3d_tpu_torch.tools import card_checks, probe_i16
     from video3d_tpu_torch.tools.profile_stage import sbs_batch
 
     def sbs_frames(n: int, seed: int) -> np.ndarray:
@@ -267,7 +283,7 @@ def main() -> int:
     pix = B * H * W_SBS
 
     def add_row(key, **row):
-        t, by = bound(*row.pop("work"))
+        t, by = bound(*row["work"])
         rows[key] = dict(row, bound_ms=t, bound_by=by,
                          library_ms=row.get("library_ms"))
 
@@ -362,6 +378,84 @@ def main() -> int:
                              3) / B,
             work=(2 * pix * 4 / B, 2 * win * pix / B))
     del disp, sp, sp_p, frames2
+    print(f"B3's 3-direction launches are cooperative: "
+          f"{sgm.vertical_plan[0]} blocks of {sgm.vertical_plan[5]} columns "
+          f"on each of {sgm.vertical_plan[1]} multiprocessors, "
+          f"{sgm.vertical_plan[2]} strips a frame, so {sgm.vertical_plan[3]} "
+          f"frames a launch ({sgm.vertical_plan[4]} launch for the batch of "
+          f"{B})")
+
+    # B1, B2 and B3 again at the stage's batch of 8, where four times the
+    # frames are resident and the sweeps are bound by bytes, not by their
+    # chain; each gated against its twin there too
+    batch8 = 8
+    gl8, gr8 = gray_pair(
+        torch.from_numpy(sbs_frames(batch8, SEED + 50)).to(dev))
+    at_8 = "ms/frame at 1080p D=64, batch 8"
+    cost8 = costvol.cost_volume(gl8, gr8, p, inv)
+    cost8_p, plain_ms = timed(lambda: costvol.cost_volume_plain(gl8, gr8, p,
+                                                                inv))
+    err = (cost8.int() - cost8_p.int()).abs().max().item()
+    check(err == 0, f"B1 at batch 8 differs from twin: {err}")
+    del cost8_p
+    add_row("B1@8", at=at_8, name="B1 cost_volume, batch 8",
+            source=b1["source"],
+            replaces="video3d_tpu/kernels/costvol.py:394", max_abs_err=err,
+            ms=cuda_ms(lambda: costvol.cost_volume(gl8, gr8, p, inv),
+                       5) / batch8,
+            plain_ms=plain_ms / batch8, work=b1["work"])
+    del gl8, gr8
+    for tag, pp in (("", p), ("-hh", p8)):
+        acc = sgm.horizontal_sweeps(cost8, pp)
+        if pp is p:
+            acc_p, plain_ms = timed(lambda: sgm.horizontal_sweeps_plain(
+                cost8, pp))
+            err = (acc.double() - acc_p.double()).abs().max().item()
+            check(err == 0, f"B2 at batch 8 differs from twin: {err}")
+            del acc_p
+            add_row("B2@8", at=at_8, name="B2 horizontal_sweeps, batch 8",
+                    source="video3d_tpu_torch/csrc/sgm.cu",
+                    replaces="video3d_tpu/kernels/sgm.py:617",
+                    max_abs_err=err, plain_ms=plain_ms / batch8,
+                    ms=cuda_ms(lambda: sgm.horizontal_sweeps(cost8, pp),
+                               5) / batch8,
+                    work=rows["B2"]["work"])
+        (disp_p, m_p), plain_ms = timed(
+            lambda: sgm.vertical_sweeps_wta_plain(cost8, acc, pp, True))
+        acc_scratch = acc.clone()
+        disp8, m8 = sgm.vertical_sweeps_wta(cost8, acc_scratch, pp, True)
+        torch.cuda.synchronize()
+        err = (disp8 - disp_p).abs().max().item()
+        check(torch.equal(disp8 >= 0, disp_p >= 0),
+              f"B3{tag} at batch 8: validity differs")
+        check(err <= 1e-5, f"B3{tag} at batch 8 differs from twin: {err}")
+        check(torch.allclose(m8, m_p, rtol=1e-6, atol=0.0),
+              f"B3{tag} at batch 8: margin differs")
+        del disp_p, m_p, disp8, m8
+        add_row(f"B3{tag}@8", at=at_8,
+                name=rows[f"B3{tag}"]["name"] + ", batch 8",
+                source="video3d_tpu_torch/csrc/sgm.cu",
+                replaces="video3d_tpu/kernels/sgm.py:882", max_abs_err=err,
+                plain_ms=plain_ms / batch8,
+                ms=cuda_ms(lambda: sgm.vertical_sweeps_wta(
+                    cost8, acc_scratch, pp), 5) / batch8,
+                work=rows[f"B3{tag}"]["work"])
+        print(f"B3{tag} at batch 8: {sgm.vertical_plan[3]} frames a launch, "
+              f"{sgm.vertical_plan[4]} launches per sweep step")
+        del acc, acc_scratch
+    del cost8
+    torch.cuda.empty_cache()
+
+    # B1 and B3 at small shapes that the 1080p run does not stress
+    for case in card_checks.B1_CASES:
+        card_checks.check_b1(dev, *case)
+    for case in card_checks.B3_CASES:
+        card_checks.check_b3(dev, *case)
+    print(f"B1 equals its twin at {len(card_checks.B1_CASES)} small shapes "
+          f"(D 16-128, widths 33-1000, heights 2-137, min_disparity 0 and "
+          f"3, blocks 3-9); B3 holds its gates at "
+          f"{len(card_checks.B3_CASES)} (2, 4, 5 and 8 paths, with and "
+          f"without the margin)")
 
     # B8a, the public sgm_aggregate_pallas, at 8 paths on f32 and bf16 cost
     # (the B1 volume as floats); bit-equal to its twin
@@ -688,6 +782,10 @@ def main() -> int:
         for key, k in zip(("B1", "B2", "B3", "B4"), launches):
             rows[key]["launches"] = k
         rows["B1-i16"]["launches"] = launches[0]
+        # the stage runs batches of 8: the same launches, at the @8 rows'
+        # shape
+        for key, k in zip(("B1@8", "B2@8", "B3@8"), launches):
+            rows[key]["launches"] = k
         check(n == 2 * batch, f"wrote {n} frames")
         maps = read_maps(cache, n)
         check_disparity(maps, "main path")
@@ -873,6 +971,7 @@ def main() -> int:
               f"{n_hh / hh_s:.2f} frames/s on {card}; launches B1..B4 = "
               f"{hh_launches}")
         rows["B2-hh"]["launches"], rows["B3-hh"]["launches"] = hh_launches[1:3]
+        rows["B3-hh@8"]["launches"] = hh_launches[2]
         check(n_hh == 16, f"wrote {n_hh} frames")
         hh_maps = read_maps(hh_cache, n_hh)
         check_disparity(hh_maps, "MODE_HH path")

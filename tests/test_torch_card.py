@@ -1,0 +1,185 @@
+"""Every CUDA kernel of the port against its plain twin, on the card.
+
+This module imports neither ``jax`` nor ``tests/conftest.py``, so it runs
+on a machine that has a CUDA card and no JAX:
+
+    python -m pytest --noconftest tests/test_torch_card.py -m cuda
+
+Every test is marked ``cuda`` and skips where ``torch.cuda.is_available()``
+is false. B1 and B3 run the small-shape list of
+``video3d_tpu_torch/tools/card_checks.py`` (ragged widths, short heights,
+D from 16 to 128, ``min_disparity`` 3, every SGM mode); the other kernels
+run at the shapes of the ``cuda`` tests beside their CPU tests. Gates are
+the smoke's: B1, B2, B4, B8a-c and P bit-exact; B3 identical validity,
+disparity within 1e-5, margin within rtol 1e-6; B5 1e-5; B6 2e-4 px; B7
+1e-5 in f32 and one bf16 ulp on >= 99.9% of the outputs.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from video3d_tpu_torch import kernels as tkernels
+from video3d_tpu_torch.kernels import (attention, costvol, flowmatch, sgm,
+                                       speckle, warp, wmajor)
+from video3d_tpu_torch.ops import flow as tflow
+from video3d_tpu_torch.ops import stereo
+from video3d_tpu_torch.ops.attention import attention_plain
+from video3d_tpu_torch.ops.speckle import speckle_filter_device
+from video3d_tpu_torch.tools import card_checks, probe_i16
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _uniform(seed, lo, hi, shape, device):
+    r = np.random.default_rng(seed)
+    return torch.from_numpy(r.uniform(lo, hi, shape).astype(np.float32)).to(
+        device)
+
+
+@pytest.mark.parametrize("case", card_checks.B1_CASES, ids=str)
+def test_b1_matches_twin(dev, case):
+    card_checks.check_b1(dev, *case)
+
+
+@pytest.mark.parametrize("case", card_checks.B3_CASES, ids=str)
+def test_b3_matches_twin(dev, case):
+    card_checks.check_b3(dev, *case)
+
+
+@pytest.mark.parametrize("paths", [5, 8])  # int16 and f32 accumulator
+@pytest.mark.parametrize("shape", [(2, 40, 200, 64), (1, 9, 70, 35)])
+def test_b2_matches_twin(dev, shape, paths):
+    b, h, w, d = shape
+    p = stereo.SGBMParams(num_disparities=d, num_paths=paths)
+    gl, gr = card_checks.gray_pair(b, h, w, 3, 4, dev)
+    cost = costvol.cost_volume(gl, gr, p, 2.0 * p.prefilter_cap)
+    n = sgm.sweep_launches
+    acc = sgm.horizontal_sweeps(cost, p)
+    assert sgm.sweep_launches == n + 1
+    assert acc.dtype == (torch.float32 if paths == 8 else torch.int16)
+    assert torch.equal(acc, sgm.horizontal_sweeps_plain(cost, p))
+
+
+@pytest.mark.parametrize("shape,min_region", [((2, 40, 200), 100),
+                                              ((1, 137, 257), 9)])
+def test_b4_matches_twin(dev, shape, min_region):
+    r = np.random.default_rng(3)
+    disp = r.uniform(0, 64, shape).astype(np.float32)
+    disp[r.uniform(size=shape) < 0.3] = -1.0
+    disp = torch.from_numpy(disp).to(dev)
+    n = speckle.launches
+    got = speckle.speckle_filter(disp, -1.0, 32.0, min_region, (0.0, 64.0))
+    assert speckle.launches == n + 1
+    assert torch.equal(got, speckle_filter_device(disp, -1.0, 32.0,
+                                                  min_region))
+
+
+@pytest.mark.parametrize("shape,r", [((270, 480), 6), ((37, 53), 4),
+                                     ((540, 960), 16)])
+def test_b5_matches_twin(dev, shape, r):
+    img = torch.from_numpy(np.random.default_rng(21).standard_normal(
+        shape).astype(np.float32)).to(dev)
+    # past the clamp on purpose: both sides must clamp to [-r, r]
+    fy = _uniform(22, -r - 1, r + 1, shape, dev)
+    fx = _uniform(23, -r - 1, r + 1, shape, dev)
+    n = warp.launches
+    got = warp.warp_bilinear_shifts(img, fy, fx, r)
+    assert warp.launches == n + 1
+    want = tflow.warp_bilinear_shifts_plain(img, fy, fx, r)
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("shape", [(270, 480), (37, 53), (5, 7)])
+def test_b6_matches_twin(dev, shape):
+    def texture(seed):
+        """Band-limited random texture: gradient everywhere for matching."""
+        import scipy.ndimage as ndi
+
+        t = ndi.gaussian_filter(np.random.default_rng(seed).standard_normal(
+            shape), 2.0)
+        t = (t - t.min()) / (np.ptp(t) + 1e-9)
+        return torch.from_numpy((t * 255.0).astype(np.float32)).to(dev)
+
+    args = (texture(3), texture(4), _uniform(5, -3, 3, shape, dev),
+            _uniform(6, -3, 3, shape, dev))
+    n = flowmatch.launches
+    got = flowmatch.flow_match(*args, search=2, radius=3, tau=2.0)
+    assert flowmatch.launches == n + 1
+    want = tflow.flow_match_plain(*args, search=2, radius=3, tau=2.0)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max().item() <= 2e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 3, 77, 32), (1, 6, 130, 16),
+                                   (2, 16, 577, 64), (1, 4, 1500, 32)])
+def test_b7_matches_twin(dev, dtype, shape):
+    r = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(r.standard_normal(shape).astype(
+        np.float32)).to(dev, dtype) for _ in range(3))
+    sm = 1.0 / shape[-1] ** 0.5
+    want = attention_plain(q, k, v, sm).float()
+    n = attention.launches
+    for got in (attention.attention_multihead(q, k, v, sm),
+                attention.attention_oneblock(q, k, v, sm)):
+        torch.cuda.synchronize()
+        err = (got.float() - want).abs()
+        if dtype == torch.float32:
+            assert err.max().item() <= 1e-5
+        else:
+            tol = 2.0 ** -7 * want.abs() + 2.0 ** -10
+            assert (err <= tol).float().mean().item() >= 0.999
+    assert attention.launches == n + 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("paths", [2, 4, 5, 8])
+def test_b8a_matches_twin(dev, paths, dtype):
+    cost = _uniform(5, 0, 100, (2, 30, 70, 40), dev).to(dtype)
+    n = sgm.aggregate_launches
+    got = tkernels.sgm_aggregate_pallas(cost, paths, 6.0, 24.0)
+    assert sgm.aggregate_launches == n + 1
+    want = stereo.sgm_aggregate(cost, stereo.SGBMParams(num_paths=paths,
+                                                        p1=6.0, p2=24.0))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.int16, torch.float32])
+def test_b8b_matches_twin(dev, dtype):
+    r = np.random.default_rng(1)
+    x = torch.from_numpy(r.integers(0, 30000, (2, 70, 90, 40))).to(dev, dtype)
+    n = wmajor.transpose_launches
+    t = wmajor.transpose_to_wmajor(x)
+    assert torch.equal(t, wmajor.transpose_to_wmajor_plain(x))
+    assert torch.equal(wmajor.transpose_from_wmajor(t, 70), x)
+    assert wmajor.transpose_launches > n
+
+
+@pytest.mark.parametrize("cost_dtype,acc_dtype",
+                         [(torch.int16, torch.int16),
+                          (torch.int16, torch.float32),
+                          (torch.float32, torch.float32)])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_b8c_matches_twin(dev, reverse, cost_dtype, acc_dtype):
+    r = np.random.default_rng(2)
+    cost_t = torch.from_numpy(r.integers(0, 1550, (2, 64, 90, 70))).to(
+        dev, cost_dtype)
+    acc = torch.from_numpy(r.integers(0, 10000, cost_t.shape)).to(
+        dev, acc_dtype)
+    want = wmajor.wmajor_sweep_plain(cost_t, acc, 600.0, 2400.0, reverse)
+    n = wmajor.sweep_launches
+    got = wmajor.wmajor_sweep(cost_t, acc.clone(), 600.0, 2400.0, reverse)
+    assert wmajor.sweep_launches == n + 1
+    assert torch.equal(got, want)
+
+
+def test_probe_ops_match_torch(dev):
+    assert all(v == 0 for v in probe_i16.run(dev).values())

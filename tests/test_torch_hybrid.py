@@ -291,7 +291,23 @@ def test_cache_key_tags_match_jax(tmp_path, opts):
     ext = tdepth.StereoDepthExtractor(work_dir=str(tmp_path), device="cpu",
                                       **opts)
     jext = jdepth.StereoDepthExtractor(work_dir=str(tmp_path), **opts)
-    assert ext._model_key() == jext._model_key() + "+torch"
+    # the port tags the trust scale, which the JAX key leaves out
+    ts = "+ts2" if opts.get("trust_scale") == 2 else ""
+    assert ext._model_key() == jext._model_key() + ts + "+torch"
+
+
+def test_cache_key_tags_trust_scale(tmp_path):
+    """Two extractors that differ only in ``trust_scale`` write different
+    maps, so they get different keys; without the confidence blend the
+    scale changes nothing and the key stays."""
+    kw = dict(work_dir=str(tmp_path), device="cpu", guidance="dpt")
+    keys = [tdepth.StereoDepthExtractor(trust_scale=s, **kw)._model_key()
+            for s in (1, 2, 4)]
+    assert len(set(keys)) == 3 and "+ts" not in keys[0]
+    assert keys[1].endswith("+ts2+torch") and keys[2].endswith("+ts4+torch")
+    fixed = [tdepth.StereoDepthExtractor(trust_scale=s, blend="fixed",
+                                         **kw)._model_key() for s in (1, 2)]
+    assert fixed[0] == fixed[1]
 
 
 def test_unported_guidance_raises(tmp_path):

@@ -3,49 +3,98 @@
 // Replace the TPU kernels video3d_tpu/kernels/sgm.py
 // _directional_pass_dmajor (body _row_kernel_dmajor; B2, one sweep of the
 // int16 volume with an int16 or f32 accumulator), sgm_wta_pallas_dmajor
-// (body _final_wta_kernel_dmajor; B3, the closing vertical sweeps fused
-// with WTA: top-down for MODE_SGBM, bottom-up for 4 and 8 paths) and
+// (body _final_wta_kernel_dmajor; B3, the vertical sweeps fused with WTA:
+// top-down for MODE_SGBM, top-down then bottom-up for 4 and 8 paths) and
 // _directional_pass (body _row_kernel; B8a, the sweeps of
 // sgm_aggregate_pallas on an f32 or bf16 (B, H, W, D) cost with f32
 // carries). The TPU walks a row-block grid in order with the carries in
-// VMEM.
+// VMEM, all vertical directions and the WTA in one walk down the rows, the
+// total never stored.
 //
-// What bounds them on the H100: each sweep reads the cost volume and
-// read-modify-writes the accumulator (3 x 531 MB for two 1080p frames at
-// D=64 in int16, ~0.5 ms at 3.35 TB/s; 5/3 of that with an f32
-// accumulator), but every scan line is a serial chain of W or H dependent
-// steps, each a min over D -- so latency of that chain, not bandwidth, is
-// the first limit.
+// B2 and B8a, sweep_kernel: every SGM direction is a set of independent
+// 1-D scan lines (rows for the horizontals, columns for the verticals,
+// diagonal lines that start on the first row of the sweep or on the
+// left/right edge -- the TPU's zero lateral fill). One warp owns one scan
+// line, each lane DPL consecutive disparities, the carry in registers; the
+// min over D is a __shfl_xor butterfly and the d-1/d+1 neighbours come
+// over __shfl_up/down, with a sentinel past both ends of d. The next
+// pixel's cost and accumulator are loaded before the current step is
+// computed. One launch per direction reads the cost and read-modify-writes
+// the accumulator (796 MB a 1080p frame at D=64 in int16): with few frames
+// resident the serial chain of W or H steps bounds it, at a batch of 8 the
+// integer operations of a step do, before the bytes.
 //
-// Simple design: every SGM direction is a set of independent 1-D scan lines
-// (rows for the horizontals, columns for the verticals, diagonal lines that
-// start on the first row of the sweep or on the left/right edge -- the
-// TPU's zero lateral fill). One warp owns one scan line, each lane DPL
-// consecutive disparities, the carry in registers; the min over D is a
-// __shfl_xor butterfly and the d-1/d+1 neighbours come over
-// __shfl_up/down, with a sentinel past both ends of d. The next pixel's
-// cost and accumulator are loaded before the current step is computed. One
-// launch per direction read-modify-writes the accumulator; each pixel is
-// touched once per launch, so there are no atomics.
+// B3, vertical_kernel: what the work needs is the cost and the horizontal
+// accumulator read once and two small planes written -- 530 MB a 1080p
+// frame at D=64 with an int16 accumulator, 795 MB with f32 (0.16 and 0.24
+// ms at 3.35 TB/s). So all directions that share a dy run in one launch,
+// and the launch that closes the mode does the left-image WTA on the total
+// it holds in registers: the total is never written and never read back.
+// 5 paths is one launch; 4 and 8 paths are two (top-down writes the
+// accumulator once, bottom-up closes); 2 paths is the WTA alone. Measured
+// on the card, what then bounds the kernel is not the bytes but the
+// integer operations of a row (min, add, shuffle: the card issues 64
+// lanes of them a clock and multiprocessor), so the design spends as few
+// as it can on each pixel:
+//   - A pixel is held by 8, 16 or 32 lanes (lanes_per_pixel), each with
+//     three or four adjacent disparities, so a warp walks 4, 2 or 1
+//     adjacent columns down the rows in sweep order and the shuffles of a
+//     step (the min over D, the d-1/d+1 neighbours) serve all of them. The
+//     vertical carry stays in registers. Past D the cost reads as the
+//     sentinel, once a row, and nothing after that needs a mask.
+//   - A diagonal at column x needs the previous row's carry of column
+//     x - dx: inside the block's strip of columns that goes through a
+//     double-buffered shared-memory array and one __syncthreads() a row.
+//   - Each column keeps PF rows of cost and accumulator in flight, copied
+//     asynchronously (cp.async, 16 bytes a lane) into its own ring of
+//     shared-memory slots, so no step waits for a load it has just asked
+//     for. (Where a pixel's D values do not start on 16-byte boundaries
+//     the lanes load them one by one.)
+//   - Across strips the edge column's carry goes through global memory:
+//     each value is stored in one 32-bit word with the row's tag above it
+//     (a path value stays below 2^19 in size: the wrapper bounds the mode's
+//     total by 2^20), in a ring of four rows, and the neighbour spins on
+//     the words it needs until the tag is the row's -- no fence, no
+//     separate flag. An edge column first does the direction whose carry it
+//     publishes, asks for the neighbour's words before that step and looks
+//     at them after it. A block can run at most one row ahead of its
+//     neighbour, so a ring of four is never overwritten unread. All blocks
+//     of a launch must be resident for this: the launch is cooperative, the
+//     grid is sized from the occupancy, and the C function loops over
+//     chunks of frames when B x strips exceeds it. A refused launch returns
+//     its error; nothing falls back to per-direction launches.
+//   - Every block of a frame advances in lockstep with its neighbours, so
+//     fewer, wider strips run faster as long as every multiprocessor still
+//     has a block: a block has 32 warps (one block a multiprocessor) where
+//     launches of such blocks would be nearly full, else 16 (two blocks),
+//     chosen by vertical_warps from the batch, the width and D.
+//   - The closing launch takes the first minimum by the v*256 + d key, the
+//     second minimum and the neighbours of the first per pixel and row; the
+//     f32 part (sub-pixel step, uniqueness test, margin) runs once for as
+//     many rows as the pixel has lanes, each lane one row.
+//     The right-image WTA (first minimum over d of total[y, xr+d+md, d])
+//     crosses columns: pixel x votes its key for xr = x - d - md with a
+//     shared-memory atomicMin over the strip, and a row later the strip's
+//     CW + D - 1 keys go to its own run of a (B, H, strips, CW + D - 1)
+//     plane with plain stores. (One global atomicMin per touched xr into a
+//     (B, H, W) plane was measured first: every block of a frame is on the
+//     same row at the same time, the atomics on that row's few lines
+//     serialise, and the next row's barrier waits for them -- more than
+//     half of the kernel's time.) lr_kernel, a small elementwise kernel, then takes for
+//     each valid pixel the least key over the strips that reach its xr --
+//     ties go to the smallest d because the key orders them -- and applies
+//     the LR check to the disparity.
 //
-// The kernel is one template over the cost type, the accumulator type and
-// the compute type. An int16 cost computes in int32 (exact; an f32
-// accumulator holds the integer totals exactly, as the TPU's f32 carries
-// do), so the result does not depend on summation order. An f32 or bf16
-// cost (B8a) computes in f32 with the TPU kernel's 1e9 sentinel and its
-// order of operations, (c + best) - m and then acc + L, direction by
-// direction in the TPU's order, so it rounds as the TPU kernel and the
-// plain twin do.
-//
-// The WTA (second half of B3) is a separate per-row kernel over the int16 or
-// f32 total: a block owns one image row, first computes the right-image WTA
-// of that row into shared memory, then one warp per pixel takes the first
-// minimum, the sub-pixel step in f32, the uniqueness test, the margin and
-// the LR check. Totals are integers, held in int32 in registers. Fusing the
-// last sweep with the WTA, as the TPU does, is later work.
+// An int16 cost computes in int32 (exact; an f32 accumulator holds the
+// integer totals exactly, as the TPU's f32 carries do), so the result does
+// not depend on the order of the directions. An f32 or bf16 cost (B8a)
+// computes in f32 with the TPU kernel's 1e9 sentinel and its order of
+// operations, (c + best) - m and then acc + L, direction by direction in
+// the TPU's order, so it rounds as the TPU kernel and the plain twin do.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
@@ -191,93 +240,440 @@ __global__ void sweep_kernel(const CT* __restrict__ cost, const AT* acc_in,
   }
 }
 
-// value v[d % DPL] of the lane that owns disparity d
-template <int DPL>
-__device__ __forceinline__ int value_at(const int* v, int d) {
+constexpr int PF = 4;           // rows in flight per column (power of 2)
+constexpr int XCH_RING = 4;     // rows of an edge-exchange ring
+constexpr int RINIT = INT_MAX;  // a right-image key nothing voted for
+constexpr unsigned SPIN_LIMIT = 1u << 24;  // polls before a block gives up
+static_assert(PF >= 1 && (PF & (PF - 1)) == 0, "ring slots");
+
+// Lanes of a warp that share one pixel of a vertical block, each with three
+// or four adjacent disparities: a warp holds 4, 2 or 1 columns, so the
+// shuffles of a step are shared between them.
+__host__ __device__ inline int lanes_per_pixel(int D) {
+  return D <= 32 ? 8 : D <= 64 ? 16 : 32;
+}
+// columns of the strip of a vertical block of vw warps
+__host__ __device__ inline int strip_cols(int D, int vw) {
+  return vw * (32 / lanes_per_pixel(D));
+}
+// ints between the two buffers of a block's right-image keys
+__host__ __device__ inline int keys_pitch(int D, int vw) {
+  return (strip_cols(D, vw) + D - 1 + 3) & ~3;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* global) {
+  unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(global)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// min over the LPP lanes of a pixel
+template <int LPP>
+__device__ __forceinline__ int seg_min(int v) {
+#pragma unroll
+  for (int o = LPP / 2; o > 0; o >>= 1)
+    v = min(v, __shfl_xor_sync(FULL, v, o));
+  return v;
+}
+
+// value v[d % DPL] of the lane of this pixel that owns disparity d
+template <int LPP, int DPL>
+__device__ __forceinline__ int value_at(const int (&v)[DPL], int d) {
   int j = d % DPL, sel = v[0];
 #pragma unroll
   for (int k = 1; k < DPL; ++k)
     if (k == j) sel = v[k];
-  return __shfl_sync(FULL, sel, d / DPL);
+  return __shfl_sync(FULL, sel, d / DPL, LPP);
 }
 
-// grid (H, B); dynamic shared memory: W ints (right-image disparities).
-// TT is int16_t or float (integer totals; exact in int32).
-template <typename TT, int DPL>
-__global__ void wta_kernel(const TT* __restrict__ total,
-                           float* __restrict__ disp,
-                           float* __restrict__ margin, int H, int W, int D,
-                           int md, int uniq, int lr) {
-  extern __shared__ int d_right[];
-  const int y = blockIdx.x;
-  const long long b = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
-  const TT* row = total + (b * H + y) * (long long)W * D;
-  const long long orow = (b * H + y) * (long long)W;
+// N adjacent values moved as one word where a lane's run is 8 or 16 bytes
+template <typename T, int N>
+struct alignas(sizeof(T) * N) Run { T v[N]; };
 
-  if (lr >= 0) {
-    // right-image WTA: first minimum over d of total[d, xr + d + md];
-    // hypotheses past the right edge are invalid (key = SENT)
-    for (int xr = warp; xr < W; xr += nw) {
-      int key = SENT * 256 + 255;
+// a lane's DPL values at p (aligned to the run where DPL is 4)
+template <typename T, int DPL>
+__device__ __forceinline__ void load_run(const T* p, int (&out)[DPL]) {
+  if constexpr (DPL == 4) {
+    Run<T, DPL> r = *(const Run<T, DPL>*)p;
 #pragma unroll
-      for (int j = 0; j < DPL; ++j) {
-        int d = lane * DPL + j;
-        if (d < D) {
-          int xx = xr + d + md;
-          int v = xx < W ? load<int>(row, (long long)xx * D + d) : SENT;
-          key = min(key, v * 256 + d);
-        }
-      }
-      key = warp_min(key);
-      if (lane == 0) d_right[xr] = key & 255;
-    }
+    for (int j = 0; j < DPL; ++j) out[j] = (int)r.v[j];
+  } else {
+#pragma unroll
+    for (int j = 0; j < DPL; ++j) out[j] = (int)p[j];
+  }
+}
+
+template <typename T, int DPL>
+__device__ __forceinline__ void store_run(T* p, const int (&v)[DPL]) {
+  if constexpr (DPL == 4) {
+    Run<T, DPL> r;
+#pragma unroll
+    for (int j = 0; j < DPL; ++j) r.v[j] = (T)v[j];
+    *(Run<T, DPL>*)p = r;
+  } else {
+#pragma unroll
+    for (int j = 0; j < DPL; ++j) p[j] = (T)v[j];
+  }
+}
+
+// One step of the recurrence on a lane's DPL disparities of a pixel held
+// by LPP lanes (int32, exact). Past D the cost is SENT, so a carry there is
+// SENT or more (and at most SENT + p2) from the first step on and no step
+// needs a mask: it never is the minimum, and as the neighbour of D - 1 it
+// loses to every real value, as the sentinel would.
+template <int LPP, int DPL>
+__device__ __forceinline__ void sgm_step(const int (&L)[DPL],
+                                         const int (&c)[DPL], int (&Ln)[DPL],
+                                         int dl, int p1, int p2) {
+  int m = L[0];
+#pragma unroll
+  for (int j = 1; j < DPL; ++j) m = min(m, L[j]);
+  m = seg_min<LPP>(m);
+  int below = __shfl_up_sync(FULL, L[DPL - 1], 1, LPP);
+  int above = __shfl_down_sync(FULL, L[0], 1, LPP);
+  if (dl == 0) below = SENT;
+  if (dl == LPP - 1) above = SENT;
+  const int mp2 = m + p2;
+#pragma unroll
+  for (int j = 0; j < DPL; ++j) {
+    int dn = j > 0 ? L[j - 1] : below;
+    int up = j < DPL - 1 ? L[j + 1] : above;
+    int best = min(min(L[j], mp2), min(up, dn) + p1);
+    Ln[j] = (c[j] - m) + best;
+  }
+}
+
+// bytes of a vertical block's shared memory: the diagonal carries int
+// [2][2][CW][DP] when ndir == 3, the right-image keys int [2][keys_pitch]
+// when the launch closes with an LR check, then per column a ring of PF
+// slots, each the int16 cost and the accumulator of one pixel
+inline size_t vertical_smem(int vw, int DP, int D, int ndir, bool right,
+                            int acc_bytes) {
+  const int cw = strip_cols(D, vw);
+  return sizeof(int) * ((ndir == 3 ? 2 * 2 * cw * DP : 0) +
+                        (right ? 2 * keys_pitch(D, vw) : 0)) +
+         (size_t)cw * PF * DP * (2 + acc_bytes);
+}
+
+// B3: the NDIR (0, 1: dx 0, or 3: dx 0, +1, -1) sweeps of step dy over the
+// frames frame0.. of the int16 cost, added to acc. CLOSE: the total goes to
+// the WTA and is not stored; else it is written back to acc.
+// grid (strips of CW columns, frames of the chunk), VW (16 or 32) warps, 64
+// registers a thread; LPP lanes a pixel, DPL disparities a lane,
+// LPP * DPL >= D.
+// xch: int [frame][strip][side][XCH_RING][LPP * DPL], zeroed before the
+// launch; side 0 the first column's dx -1 carry, side 1 the last's dx +1.
+// rkey: int [frame][row][strip][CW + D - 1], the strip's right-image keys.
+template <typename AT, int VW, int LPP, int DPL, int NDIR, bool CLOSE>
+__global__ void __launch_bounds__(VW * 32, 32 / VW)
+vertical_kernel(const int16_t* __restrict__ cost, AT* acc,
+                float* __restrict__ disp, float* __restrict__ margin,
+                int* __restrict__ rkey, int* xch, int H, int W, int D, int dy,
+                int p1, int p2, int md, int uniq, int lr, int frame0) {
+  extern __shared__ int4 vsm4[];
+  constexpr int PPW = 32 / LPP;  // pixels (columns) of a warp
+  constexpr int CW = VW * PPW;   // columns of the block's strip
+  constexpr int DP = LPP * DPL;  // disparities a pixel's lanes hold
+  constexpr int SLOT = DP * (2 + (int)sizeof(AT));  // bytes of a ring slot
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int dl = lane % LPP, d0 = dl * DPL;
+  const int colb = (tid >> 5) * PPW + lane / LPP;  // column in the strip
+  const int x = blockIdx.x * CW + colb;
+  const bool active = x < W;
+  const long long b = frame0 + blockIdx.y;
+  const int n_r = CW + D - 1, pitch = keys_pitch(D, VW);
+  const bool right = CLOSE && lr >= 0;
+  int* Lsm = (int*)vsm4;                                // [2][2][CW][DP]
+  int* rmin = Lsm + (NDIR == 3 ? 2 * 2 * CW * DP : 0);  // [2][pitch]
+  char* ring = (char*)(rmin + (right ? 2 * pitch : 0)) + colb * (PF * SLOT);
+  if (right) {
+    for (int i = tid; i < 2 * pitch; i += VW * 32) rmin[i] = RINIT;
     __syncthreads();
   }
 
-  for (int x = warp; x < W; x += nw) {
-    int v[DPL];
-    int key = SENT * 256 + 255;
-#pragma unroll
-    for (int j = 0; j < DPL; ++j) {
-      int d = lane * DPL + j;
-      v[j] = d < D ? load<int>(row, (long long)x * D + d) : SENT;
-      if (d < D) key = min(key, v[j] * 256 + d);
-    }
-    key = warp_min(key);  // first minimum wins ties
-    const int s_min = key >> 8, d_int = key & 255;
-    const int s_m1 = value_at<DPL>(v, d_int > 0 ? d_int - 1 : 0);
-    const int s_p1 = value_at<DPL>(v, d_int < D - 1 ? d_int + 1 : D - 1);
-    int sec = SENT;
-#pragma unroll
-    for (int j = 0; j < DPL; ++j) {
-      int d = lane * DPL + j;
-      if (d < D && abs(d - d_int) > 1) sec = min(sec, v[j]);
-    }
-    sec = warp_min(sec);
-    if (lane != 0) continue;
+  // A diagonal's carry comes from the neighbour column: zero at the image
+  // edge, from the next block (polled) for the strip's first and last
+  // column, else from shared memory. Direction 0 is dx +1 (from x - 1),
+  // direction 1 is dx -1 (from x + 1). A column does direction kA, then kB;
+  // an edge column publishes kA's carry and polls for kB's.
+  const bool zero_p = x - 1 < 0, zero_n = x + 1 >= W;
+  const bool edge_p = active && colb == 0 && !zero_p;
+  const bool edge_n = active && colb == CW - 1 && !zero_n;
+  const bool edge = edge_p || edge_n;
+  const int kA = edge_p ? 1 : 0, kB = 1 - kA;
+  const bool zeroA = kA == 0 ? zero_p : zero_n;
+  const bool zeroB = kB == 0 ? zero_p : zero_n;
+  const int srcA = (kA * CW + colb + (kA == 0 ? -1 : 1)) * DP + d0;
+  const int srcB = (kB * CW + colb + (kB == 0 ? -1 : 1)) * DP + d0;
+  const int dstA = (kA * CW + colb) * DP + d0;
+  const int dstB = (kB * CW + colb) * DP + d0;
+  int* xmine = xch + ((long long)blockIdx.y * gridDim.x + blockIdx.x) *
+                         (2 * XCH_RING * DP);
+  // the left block's side 1 or the right block's side 0; our side 0 or 1
+  const int* xfrom =
+      (edge_p ? xmine - XCH_RING * DP : xmine + 2 * XCH_RING * DP) + d0;
+  int* xto = xmine + (edge_n ? XCH_RING * DP : 0) + d0;
 
-    const float fs = (float)s_min, fm1 = (float)s_m1, fp1 = (float)s_p1;
-    const float denom = (fm1 + fp1) - 2.0f * fs;
-    float sub = denom > 1e-6f ? (fm1 - fp1) / (2.0f * denom + 1e-12f) : 0.0f;
-    sub = fminf(fmaxf(sub, -0.5f), 0.5f);
-    if (d_int == 0 || d_int == D - 1) sub = 0.0f;
-    const float dval = ((float)d_int + sub) + (float)md;
-    bool valid = x >= md + D;
-    const float second = sec == SENT ? 1e9f : (float)sec;
-    if (uniq > 0) valid = valid && (second * 100.0f >= fs * (100.0f + uniq));
-    if (margin) margin[orow + x] = fmaxf(second - fs, 0.0f) / (fs + 1.0f);
-    if (lr >= 0) {
-      const float dl = dval - (float)md;
-      int dr = (int)rintf(dl);  // half to even, like jnp.round
-      dr = min(max(dr, 0), D - 1);
-      const int xr = x - md - dr;
-      valid = valid && xr >= 0 &&
-              fabsf(dl - (float)d_right[max(xr, 0)]) <= (float)lr;
+  // this column's pixel of the sweep's current row, and of the next row to
+  // fetch, as offsets into the volume
+  const long long row_step = (long long)dy * W;
+  const long long vol_step = row_step * D;
+  long long o = (b * H + (dy > 0 ? 0 : H - 1)) * (long long)W + x;
+  long long obase = o * D;
+  // a pixel's D values go in 16-byte pieces where every pixel starts on a
+  // 16-byte boundary, one piece a lane; else lane by lane with plain loads
+  const bool vec_c = (D * 2) % 16 == 0;
+  const bool vec_a = (D * (int)sizeof(AT)) % 16 == 0;
+  const bool piece_c = active && dl < D * 2 / 16;
+  const bool piece_a = active && dl < D * (int)sizeof(AT) / 16;
+  auto fetch = [&](int r, long long fbase) {  // row r into slot r % PF
+    char* slot = ring + (r & (PF - 1)) * SLOT;
+    if (NDIR > 0) {
+      if (vec_c) {
+        if (piece_c)
+          cp_async16(slot + dl * 16, (const char*)(cost + fbase) + dl * 16);
+      } else if (active) {
+#pragma unroll
+        for (int j = 0; j < DPL; ++j)
+          if (d0 + j < D) ((int16_t*)slot)[d0 + j] = cost[fbase + d0 + j];
+      }
     }
-    disp[orow + x] = valid ? dval : (float)(md - 1);
+    if (vec_a) {
+      if (piece_a)
+        cp_async16(slot + DP * 2 + dl * 16,
+                   (const char*)(acc + fbase) + dl * 16);
+    } else if (active) {
+#pragma unroll
+      for (int j = 0; j < DPL; ++j)
+        if (d0 + j < D)
+          ((AT*)(slot + DP * 2))[d0 + j] = acc[fbase + d0 + j];
+    }
+  };
+#pragma unroll
+  for (int r = 0; r < PF; ++r) {
+    if (r < H) fetch(r, obase + r * vol_step);
+    cp_async_commit();
   }
+
+  int L0[DPL];  // carries start at zero
+#pragma unroll
+  for (int j = 0; j < DPL; ++j) L0[j] = 0;
+  // the WTA's results of row t, kept by lane t % LPP of the pixel until
+  // the pixel's lanes finish LPP rows together
+  int w_key = 0, w_m1 = 0, w_p1 = 0, w_sec = 0;
+  // this strip's run of the current row's right-image keys
+  int* rk = rkey + ((b * H + (dy > 0 ? 0 : H - 1)) * (long long)gridDim.x +
+                    blockIdx.x) * n_r;
+  const long long rk_step = (long long)dy * gridDim.x * n_r;
+
+  for (int t = 0; t < H; ++t) {
+    if (right && t > 0 && tid < n_r) {
+      // the keys of the row before, to the strip's own run of the plane
+      int* rm = rmin + ((t - 1) & 1) * pitch;
+      (rk - rk_step)[tid] = rm[tid];
+      rm[tid] = RINIT;
+    }
+    int c[DPL], a[DPL];
+    cp_async_wait<PF - 1>();  // row t has landed
+    __syncwarp();
+    {
+      const char* slot = ring + (t & (PF - 1)) * SLOT;
+      if (NDIR > 0) load_run<int16_t, DPL>((const int16_t*)slot + d0, c);
+      load_run<AT, DPL>((const AT*)(slot + DP * 2) + d0, a);
+#pragma unroll
+      for (int j = 0; j < DPL; ++j) {  // the only masks of the row
+        if (NDIR == 0 || d0 + j >= D) c[j] = SENT;
+        if (d0 + j >= D) a[j] = SENT;
+      }
+    }
+    __syncwarp();  // the slot is free for row t + PF
+    if (t + PF < H) fetch(t + PF, obase + PF * vol_step);
+    cp_async_commit();
+
+    int total[DPL], Lp[DPL], Ln[DPL];
+#pragma unroll
+    for (int j = 0; j < DPL; ++j) total[j] = a[j];
+    if (NDIR == 3) {
+      const unsigned tag = (unsigned)t & 0xfffu;  // of the row before
+      const unsigned tag_out = (unsigned)(t + 1) & 0xfffu;
+      int* cur = Lsm + (t & 1) * (2 * CW * DP);
+      const int* prev = Lsm + ((t - 1) & 1) * (2 * CW * DP);
+      const int* from = xfrom + ((t - 1) & (XCH_RING - 1)) * DP;
+      int* to = xto + (t & (XCH_RING - 1)) * DP;
+      // the neighbour's words, asked for before direction kA's step
+      unsigned pw[DPL];
+      const bool polls = edge && t > 0;
+      if (polls) {
+#pragma unroll
+        for (int j = 0; j < DPL; ++j)
+          pw[j] = d0 + j < D ? *(const volatile unsigned*)(from + j) : 0u;
+      }
+      // direction kA
+      if (t == 0 || zeroA) {
+#pragma unroll
+        for (int j = 0; j < DPL; ++j) Lp[j] = 0;  // the zero lateral fill
+      } else {
+        load_run<int, DPL>(prev + srcA, Lp);
+      }
+      sgm_step<LPP, DPL>(Lp, c, Ln, dl, p1, p2);
+      store_run<int, DPL>(cur + dstA, Ln);
+#pragma unroll
+      for (int j = 0; j < DPL; ++j) total[j] += Ln[j];
+      if (edge) {
+#pragma unroll
+        for (int j = 0; j < DPL; ++j)
+          if (d0 + j < D)
+            *(volatile unsigned*)(to + j) =
+                (tag_out << 20) | ((unsigned)Ln[j] & 0xfffffu);
+      }
+      // direction kB
+      if (t == 0 || zeroB) {
+#pragma unroll
+        for (int j = 0; j < DPL; ++j) Lp[j] = 0;
+      } else if (edge) {
+#pragma unroll
+        for (int j = 0; j < DPL; ++j) {
+          int v = SENT;
+          if (d0 + j < D) {
+            unsigned w = pw[j], spins = 0;
+            while ((w >> 20) != tag) {
+              if (++spins > SPIN_LIMIT) __trap();
+              w = *(const volatile unsigned*)(from + j);
+            }
+            v = (int)(w << 12) >> 12;  // the low 20 bits, signed
+          }
+          Lp[j] = v;
+        }
+      } else {
+        load_run<int, DPL>(prev + srcB, Lp);
+      }
+      sgm_step<LPP, DPL>(Lp, c, Ln, dl, p1, p2);
+      store_run<int, DPL>(cur + dstB, Ln);
+#pragma unroll
+      for (int j = 0; j < DPL; ++j) total[j] += Ln[j];
+    }
+    if (NDIR > 0) {
+      sgm_step<LPP, DPL>(L0, c, Ln, dl, p1, p2);
+#pragma unroll
+      for (int j = 0; j < DPL; ++j) {
+        L0[j] = Ln[j];
+        total[j] += Ln[j];
+      }
+    }
+    if (!CLOSE) {
+      if (active) {
+        if (DPL == 4 && vec_a) {  // D is a multiple of 4: no run straddles
+          if (d0 < D) store_run<AT, DPL>(acc + obase + d0, total);
+        } else {
+#pragma unroll
+          for (int j = 0; j < DPL; ++j)
+            if (d0 + j < D) acc[obase + d0 + j] = (AT)total[j];
+        }
+      }
+    } else {
+      // left-image WTA of the total in registers; first minimum wins ties
+      // (past D the total is SENT or more: never a minimum)
+      int kv[DPL];
+      int key = INT_MAX;
+#pragma unroll
+      for (int j = 0; j < DPL; ++j) {
+        kv[j] = total[j] * 256 + (d0 + j);
+        key = min(key, kv[j]);
+      }
+      key = seg_min<LPP>(key);
+      const int d_int = key & 255;
+      const int s_m1 = value_at<LPP, DPL>(total, d_int > 0 ? d_int - 1 : 0);
+      const int s_p1 =
+          value_at<LPP, DPL>(total, d_int < D - 1 ? d_int + 1 : D - 1);
+      int sec = SENT;
+#pragma unroll
+      for (int j = 0; j < DPL; ++j)
+        if (abs(d0 + j - d_int) > 1) sec = min(sec, total[j]);
+      sec = seg_min<LPP>(sec);
+      if (right && active) {
+        // right-image WTA: pixel x votes v*256 + d for xr = x - d - md
+        int* rm = rmin + (t & 1) * pitch + colb + (D - 1);
+#pragma unroll
+        for (int j = 0; j < DPL; ++j)
+          if (d0 + j < D && x - (d0 + j) - md >= 0)
+            atomicMin(rm - (d0 + j), kv[j]);
+      }
+      if ((t & (LPP - 1)) == dl) {
+        w_key = key;
+        w_m1 = s_m1;
+        w_p1 = s_p1;
+        w_sec = sec;
+      }
+      if ((t & (LPP - 1)) == LPP - 1 || t == H - 1) {
+        // LPP rows of the pixel at once, lane dl the row t - t % LPP + dl
+        const int back = (t & (LPP - 1)) - dl;  // rows before row t
+        if (active && back >= 0) {
+          const long long oo = o - back * row_step;
+          const int k_d = w_key & 255;
+          const float fs = (float)(w_key >> 8);
+          const float fm1 = (float)w_m1, fp1 = (float)w_p1;
+          const float denom = (fm1 + fp1) - 2.0f * fs;
+          float sub =
+              denom > 1e-6f ? (fm1 - fp1) / (2.0f * denom + 1e-12f) : 0.0f;
+          sub = fminf(fmaxf(sub, -0.5f), 0.5f);
+          if (k_d == 0 || k_d == D - 1) sub = 0.0f;
+          const float dval = ((float)k_d + sub) + (float)md;
+          bool valid = x >= md + D;
+          const float second = w_sec == SENT ? 1e9f : (float)w_sec;
+          if (uniq > 0)
+            valid = valid && (second * 100.0f >= fs * (100.0f + uniq));
+          if (margin) margin[oo] = fmaxf(second - fs, 0.0f) / (fs + 1.0f);
+          disp[oo] = valid ? dval : (float)(md - 1);
+        }
+      }
+    }
+    o += row_step;
+    obase += vol_step;
+    rk += rk_step;
+    if (NDIR == 3 || right) __syncthreads();
+  }
+  if (right && tid < n_r)
+    (rk - rk_step)[tid] = rmin[((H - 1) & 1) * pitch + tid];
+}
+
+// The LR check on the disparity of the closing launch: a valid pixel stays
+// valid where the right image's winner at xr = x - md - round(d) agrees
+// within lr. In place. rkey holds each strip's keys v*256 + d of the xr its
+// columns vote for, [row][strip][CW + D - 1]; the winner at xr is the least
+// key over the strips whose columns reach it (the first minimum over d).
+__global__ void lr_kernel(float* __restrict__ disp,
+                          const int* __restrict__ rkey, long long n, int W,
+                          int D, int md, int lr, int cw) {
+  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float dval = disp[i];
+  if (dval < (float)md) return;  // invalid already
+  const int x = (int)(i % W);
+  const float dl = dval - (float)md;
+  int dr = (int)rintf(dl);  // half to even, like jnp.round
+  dr = min(max(dr, 0), D - 1);
+  const int xr = x - md - dr;
+  bool ok = xr >= 0;
+  if (ok) {
+    // strip s votes for xr in [s*CW - (D-1) - md, s*CW + CW - 1 - md]
+    const int strips = (W + cw - 1) / cw, n_r = cw + D - 1;
+    const int* row = rkey + (i / W) * (long long)strips * n_r;
+    const int s_lo = (xr + md) / cw;
+    const int s_hi = min((xr + md + D - 1) / cw, strips - 1);
+    int key = RINIT;
+    for (int s = s_lo; s <= s_hi; ++s)
+      key = min(key, row[s * n_r + xr - (s * cw - (D - 1) - md)]);
+    ok = fabsf(dl - (float)(key & 255)) <= (float)lr;
+  }
+  if (!ok) disp[i] = (float)(md - 1);
 }
 
 template <typename CT, typename AT, typename C, int DPL>
@@ -315,30 +711,130 @@ int sweep_dpl(const void* cost, const void* acc_in, void* acc_out, int B,
   }
 }
 
-template <typename TT, int DPL>
-int launch_wta(const void* total, float* disp, float* margin, int B, int H,
-               int W, int D, int md, int uniq, int lr, cudaStream_t s) {
-  size_t smem = sizeof(int) * (size_t)W;
+// Warps of a vertical block for B frames of width W: 32 (one block a
+// multiprocessor, strips twice as wide, so half as many edge exchanges and
+// blocks in lockstep) where the launches of such blocks are at least four
+// fifths full, else 16 (two blocks a multiprocessor). Measured at 1080p,
+// D = 64 on 132 multiprocessors: a launch of 32-warp blocks takes the same
+// time for one frame as for the four it can hold, one of 16-warp blocks
+// time in proportion to its frames.
+int vertical_warps(int B, int W, int D) {
+  static int sms = 0;  // of the current device, read once
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      return 16;
+  }
+  const int cw = strip_cols(D, 32);
+  const int strips = (W + cw - 1) / cw;
+  const int fit = sms / strips > 0 ? sms / strips : 1;  // frames a launch
+  const int launches = (B + fit - 1) / fit;
+  return 5LL * B * strips >= 4LL * sms * launches ? 32 : 16;
+}
+
+template <typename AT, int VW, int LPP, int DPL, int NDIR, bool CLOSE>
+int launch_vertical(const void* cost, void* acc, float* disp, float* margin,
+                    int* rkey, int* xch, int B, int H, int W, int D, int dy,
+                    int p1, int p2, int md, int uniq, int lr, int* plan,
+                    cudaStream_t s) {
+  auto kernel = vertical_kernel<AT, VW, LPP, DPL, NDIR, CLOSE>;
+  const int DP = LPP * DPL;
+  const size_t smem =
+      vertical_smem(VW, DP, D, NDIR, CLOSE && lr >= 0, (int)sizeof(AT));
   cudaError_t e = cudaFuncSetAttribute(
-      wta_kernel<TT, DPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid(H, B);
-  wta_kernel<TT, DPL><<<grid, 256, smem, s>>>((const TT*)total, disp, margin,
-                                              H, W, D, md, uniq, lr);
+  const int cw = strip_cols(D, VW);
+  const int strips = (W + cw - 1) / cw;
+  const int16_t* cp = (const int16_t*)cost;
+  AT* ap = (AT*)acc;
+  if (NDIR < 3) {
+    // no carry crosses a column: blocks are independent
+    int frame0 = 0;
+    kernel<<<dim3(strips, B), VW * 32, smem, s>>>(
+        cp, ap, disp, margin, rkey, xch, H, W, D, dy, p1, p2, md, uniq, lr,
+        frame0);
+    return (int)cudaGetLastError();
+  }
+  // every block of a launch must be resident: a cooperative launch of at
+  // most the occupancy's grid, in chunks of whole frames
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess)
+    return (int)e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, VW * 32, smem)) != cudaSuccess)
+    return (int)e;
+  const int fit = per_sm * sms / strips;  // whole frames resident
+  // as few launches as that allows, the frames shared out evenly
+  const int launches = fit > 0 ? (B + fit - 1) / fit : 0;
+  const int chunk = launches > 0 ? (B + launches - 1) / launches : 0;
+  if (plan) {
+    plan[0] = per_sm;
+    plan[1] = sms;
+    plan[2] = strips;
+    plan[3] = chunk;
+    plan[4] = launches;
+    plan[5] = cw;
+  }
+  if (chunk < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  for (int frame0 = 0; frame0 < B; frame0 += chunk) {
+    const int n = B - frame0 < chunk ? B - frame0 : chunk;
+    if ((e = cudaMemsetAsync(
+             xch, 0, sizeof(int) * (size_t)n * strips * 2 * XCH_RING * DP,
+             s)) != cudaSuccess)
+      return (int)e;
+    void* args[] = {&cp,  &ap, &disp, &margin, &rkey, &xch, &H,  &W,
+                    &D,   &dy, &p1,   &p2,     &md,   &uniq, &lr, &frame0};
+    if ((e = cudaLaunchCooperativeKernel((void*)kernel, dim3(strips, n),
+                                         dim3(VW * 32), args, smem, s)) !=
+        cudaSuccess)
+      return (int)e;
+  }
   return (int)cudaGetLastError();
 }
 
-template <typename TT>
-int wta_dpl(const void* total, float* disp, float* margin, int B, int H,
-            int W, int D, int md, int uniq, int lr, cudaStream_t s) {
-  switch ((D + 31) / 32) {
-    case 1: return launch_wta<TT, 1>(total, disp, margin, B, H, W, D, md, uniq, lr, s);
-    case 2: return launch_wta<TT, 2>(total, disp, margin, B, H, W, D, md, uniq, lr, s);
-    case 3: return launch_wta<TT, 3>(total, disp, margin, B, H, W, D, md, uniq, lr, s);
-    case 4: return launch_wta<TT, 4>(total, disp, margin, B, H, W, D, md, uniq, lr, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+template <typename AT, int VW, int LPP, int DPL>
+int vertical_mode(const void* cost, void* acc, float* disp, float* margin,
+                  int* rkey, int* xch, int B, int H, int W, int D,
+                  int num_dirs, int dy, int close, int p1, int p2, int md,
+                  int uniq, int lr, int* plan, cudaStream_t s) {
+#define V3D_VERTICAL(NDIR, CLOSE)                                         \
+  return launch_vertical<AT, VW, LPP, DPL, NDIR, CLOSE>(                  \
+      cost, acc, disp, margin, rkey, xch, B, H, W, D, dy, p1, p2, md,     \
+      uniq, lr, plan, s)
+  if (num_dirs == 0 && close) V3D_VERTICAL(0, true);
+  if (num_dirs == 1 && close) V3D_VERTICAL(1, true);
+  if (num_dirs == 1 && !close) V3D_VERTICAL(1, false);
+  if (num_dirs == 3 && close) V3D_VERTICAL(3, true);
+  if (num_dirs == 3 && !close) V3D_VERTICAL(3, false);
+#undef V3D_VERTICAL
+  return (int)cudaErrorInvalidValue;
+}
+
+// lanes a pixel and disparities a lane by D, as lanes_per_pixel
+template <typename AT>
+int vertical_shape(const void* cost, void* acc, float* disp, float* margin,
+                   int* rkey, int* xch, int B, int H, int W, int D,
+                   int num_dirs, int dy, int close, int p1, int p2, int md,
+                   int uniq, int lr, int* plan, cudaStream_t s) {
+#define V3D_SHAPE(LPP, DPL)                                               \
+  return wide ? vertical_mode<AT, 32, LPP, DPL>(                          \
+                    cost, acc, disp, margin, rkey, xch, B, H, W, D,       \
+                    num_dirs, dy, close, p1, p2, md, uniq, lr, plan, s)   \
+              : vertical_mode<AT, 16, LPP, DPL>(                          \
+                    cost, acc, disp, margin, rkey, xch, B, H, W, D,       \
+                    num_dirs, dy, close, p1, p2, md, uniq, lr, plan, s)
+  if (D < 1 || D > 128) return (int)cudaErrorInvalidValue;
+  const bool wide = vertical_warps(B, W, D) == 32;
+  if (D <= 32) V3D_SHAPE(8, 4);
+  if (D <= 64) V3D_SHAPE(16, 4);
+  if (D <= 96) V3D_SHAPE(32, 3);
+  V3D_SHAPE(32, 4);
+#undef V3D_SHAPE
 }
 
 }  // namespace
@@ -367,18 +863,58 @@ extern "C" int v3d_sgm_sweep(void* cost, void* acc_in, void* acc_out, int B,
   return (int)cudaErrorInvalidValue;
 }
 
-// WTA of the (B, H, W, D) int16 or f32 (total_type) integer path total ->
-// f32 disparity (B, H, W) and, when margin is not NULL, the f32 uniqueness
-// margin.
-extern "C" int v3d_sgm_wta(void* total, void* disp, void* margin, int B,
-                           int H, int W, int D, int md, int uniq, int lr,
-                           int total_type, void* stream) {
+// B3, one launch per sweep step dy: the num_dirs (0; 1: vertical; 3:
+// vertical and both diagonals) sweeps of step dy over the (B, H, W, D) int16
+// cost, added to the int16 or f32 (acc_type) accumulator of the horizontal
+// paths. close = 0 writes the sum back to acc. close = 1 leaves acc as it
+// is and does the left-image WTA on the total: f32 disparity (B, H, W)
+// before the LR check, the f32 uniqueness margin when margin is not NULL
+// and, when lr >= 0, each strip's right-image keys min v*256 + d into rkey,
+// B * v3d_sgm_vertical_keys(H, W, D) ints, every one written. xch is
+// scratch of v3d_sgm_vertical_scratch(B, W) ints. plan, when not NULL,
+// receives six host ints of a 3-direction launch: blocks per
+// multiprocessor, multiprocessors, strips per frame, frames per chunk,
+// chunks, columns per block.
+extern "C" int v3d_sgm_vertical(void* cost, void* acc, void* disp,
+                                void* margin, void* rkey, void* xch, int B,
+                                int H, int W, int D, int num_dirs, int dy,
+                                int close, int p1, int p2, int md, int uniq,
+                                int lr, int acc_type, void* plan,
+                                void* stream) {
   float* dp = (float*)disp;
   float* mg = (float*)margin;
   cudaStream_t s = (cudaStream_t)stream;
-  if (total_type == T_I16)
-    return wta_dpl<int16_t>(total, dp, mg, B, H, W, D, md, uniq, lr, s);
-  if (total_type == T_F32)
-    return wta_dpl<float>(total, dp, mg, B, H, W, D, md, uniq, lr, s);
+  if (acc_type == T_I16)
+    return vertical_shape<int16_t>(cost, acc, dp, mg, (int*)rkey, (int*)xch, B,
+                                 H, W, D, num_dirs, dy, close, p1, p2, md,
+                                 uniq, lr, (int*)plan, s);
+  if (acc_type == T_F32)
+    return vertical_shape<float>(cost, acc, dp, mg, (int*)rkey, (int*)xch, B, H,
+                               W, D, num_dirs, dy, close, p1, p2, md, uniq,
+                               lr, (int*)plan, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// ints of edge-exchange scratch that v3d_sgm_vertical needs for B frames of
+// width W (at the narrowest strip and the widest pixel, 128 disparities)
+extern "C" int v3d_sgm_vertical_scratch(int B, int W) {
+  return B * ((W + 15) / 16) * 2 * XCH_RING * 128;
+}
+
+// ints of right-image keys per frame that a closing v3d_sgm_vertical on B
+// frames with lr >= 0 writes and v3d_sgm_lr_check reads
+extern "C" int v3d_sgm_vertical_keys(int B, int H, int W, int D) {
+  const int cw = strip_cols(D, vertical_warps(B, W, D));
+  return H * ((W + cw - 1) / cw) * (cw + D - 1);
+}
+
+// The LR check of B3 on the disparity and right-image keys of the closing
+// v3d_sgm_vertical launch, in place.
+extern "C" int v3d_sgm_lr_check(void* disp, void* rkey, int B, int H, int W,
+                                int D, int md, int lr, void* stream) {
+  long long n = (long long)B * H * W;
+  lr_kernel<<<(unsigned)((n + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
+      (float*)disp, (const int*)rkey, n, W, D, md, lr,
+      strip_cols(D, vertical_warps(B, W, D)));
+  return (int)cudaGetLastError();
 }

@@ -14,13 +14,19 @@ Every TPU kernel of the JAX package (each function reaching
  #    TPU kernel (video3d_tpu/...)                            port
 ==== ======================================================= ===============================
  B1   kernels/costvol.py:394 fused_cost_volume                csrc/costvol.cu, kernels/costvol.py
+                                                              (redesigned: a block walks a strip
+                                                              of columns down the rows, each raw
+                                                              cost once, a running vertical sum)
  B1-  same, VIDEO3D_TPU_COSTVOL_NATIVE_I16=1                  csrc/costvol.cu (the same kernel:
  i16  (_cost_row_step_i16 :196)                               it computes in int16 at 2x scale,
                                                               bit-equal to that variant)
  B2   kernels/sgm.py:617 _directional_pass_dmajor             csrc/sgm.cu, kernels/sgm.py
                                                               (int16 or f32 accumulator)
  B3   kernels/sgm.py:882 sgm_wta_pallas_dmajor                csrc/sgm.cu, kernels/sgm.py
-                                                              (top-down or bottom-up close)
+                                                              (redesigned: every direction of a
+                                                              sweep step in one cooperative
+                                                              launch, the WTA in the closing
+                                                              launch on the total in registers)
  B4   kernels/speckle.py:159 speckle_filter_pallas            csrc/speckle.cu, kernels/speckle.py
  B5   kernels/warp.py:91 warp_bilinear_shifts_pallas          csrc/warp.cu, kernels/warp.py
  B6   kernels/flowmatch.py:122 flow_match_pallas              csrc/flowmatch.cu, kernels/flowmatch.py

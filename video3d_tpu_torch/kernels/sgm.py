@@ -1,7 +1,10 @@
 """Kernel B2, B3 and B8a wrappers: SGM sweeps and winner-take-all.
 
-CUDA source: ``video3d_tpu_torch/csrc/sgm.cu``, one sweep kernel templated
-on the cost, accumulator and compute types, and one WTA kernel. B2
+CUDA source: ``video3d_tpu_torch/csrc/sgm.cu``: one sweep kernel templated
+on the cost, accumulator and compute types (B2, B8a), and one vertical
+kernel that runs every direction of one sweep step ``dy`` in a single
+launch and, in the launch that closes the mode, the WTA on the total it
+holds in registers (B3), with a small LR-check kernel after it. B2
 replaces the TPU kernel ``video3d_tpu/kernels/sgm.py
 _directional_pass_dmajor`` (the forward and backward horizontal sweeps,
 int16 or f32 accumulator); B3 replaces ``sgm_wta_pallas_dmajor`` (the
@@ -16,6 +19,8 @@ in the port's ``(B, H, W, D)`` layout; the plain twins are
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from video3d_tpu_torch.kernels import _build
@@ -24,11 +29,15 @@ from video3d_tpu_torch.ops.stereo import (SGBMParams, acc_dtype_for_params,
                                           integral_penalties, sgm_aggregate,
                                           sgm_sweep_dmajor,
                                           sgm_vertical_wta_dmajor,
-                                          vertical_directions)
+                                          vertical_directions,
+                                          vertical_shifts)
 
 sweep_launches = 0  # B2: calls that launched the CUDA horizontal sweeps
 wta_launches = 0  # B3: calls that launched the CUDA vertical sweeps + WTA
 aggregate_launches = 0  # B8a: calls that launched the CUDA float sweeps
+# B3's last 3-direction launch: (blocks per multiprocessor, multiprocessors,
+# strips per frame, frames per chunk, chunks, columns per block), or None
+vertical_plan = None
 
 # dtype codes of the C interface
 _CODE = {torch.int16: 0, torch.float32: 1, torch.bfloat16: 2}
@@ -92,11 +101,18 @@ def horizontal_sweeps(cost: torch.Tensor, params: SGBMParams) -> torch.Tensor:
 
 def vertical_sweeps_wta(cost: torch.Tensor, acc: torch.Tensor,
                         params: SGBMParams, return_margin: bool = False):
-    """B3: adds the vertical paths of ``params.num_paths`` to ``acc`` (in
-    place on the card) -- top-down for 5 paths, top-down then bottom-up
-    for 4 and 8, none for 2 -- and returns the validated disparity
-    (B, H, W) f32, plus the uniqueness margin with ``return_margin``."""
-    global wta_launches
+    """B3: the vertical paths of ``params.num_paths`` -- top-down for 5
+    paths, top-down then bottom-up for 4 and 8, none for 2 -- added to the
+    horizontal ``acc``, then WTA: the validated disparity (B, H, W) f32,
+    plus the uniqueness margin with ``return_margin``.
+
+    On the card every direction of a sweep step runs in one launch and the
+    closing launch does the WTA on the total in registers, so the total is
+    never stored: ``acc`` is left as it was at 2 and 5 paths and holds
+    the horizontal plus top-down sums at 4 and 8 (updated in place). No
+    caller may read the total from it.
+    """
+    global wta_launches, vertical_plan
     if not cost.is_cuda:
         return vertical_sweeps_wta_plain(cost, acc, params, return_margin)
     _check_volume(cost, params)
@@ -107,17 +123,34 @@ def vertical_sweeps_wta(cost: torch.Tensor, acc: torch.Tensor,
     p1, p2 = integral_penalties(params.p1, params.p2)
     lib = _build.lib()
     stream = _build.stream_of(cost)
-    for dy, dx in vertical_directions(params.num_paths):
-        _sweep(lib, cost, acc, acc, dy, dx, p1, p2, stream)
     b, h, w, d = cost.shape
-    disp = torch.empty((b, h, w), dtype=torch.float32, device=cost.device)
+    dev = cost.device
+    lr = int(params.disp12_max_diff)
+    n_dirs = len(vertical_shifts(params.num_paths))
+    disp = torch.empty((b, h, w), dtype=torch.float32, device=dev)
     margin = torch.empty_like(disp) if return_margin else None
-    _build.check(lib.v3d_sgm_wta(
-        acc.data_ptr(), disp.data_ptr(),
-        None if margin is None else margin.data_ptr(), b, h, w, d,
-        int(params.min_disparity), int(params.uniqueness_ratio),
-        int(params.disp12_max_diff), _CODE[acc_dtype], stream),
-        "v3d_sgm_wta")
+    rkey = (torch.empty(b * lib.v3d_sgm_vertical_keys(b, h, w, d),
+                        dtype=torch.int32, device=dev) if lr >= 0 else None)
+    xch = (torch.empty(lib.v3d_sgm_vertical_scratch(b, w), dtype=torch.int32,
+                       device=dev) if n_dirs == 3 else None)
+    plan = (ctypes.c_int * 6)()
+    steps = (1,) if params.num_paths in (2, 5) else (1, -1)
+    for dy in steps:
+        close = dy == steps[-1]
+        _build.check(lib.v3d_sgm_vertical(
+            cost.data_ptr(), acc.data_ptr(), disp.data_ptr(),
+            None if margin is None else margin.data_ptr(),
+            None if rkey is None else rkey.data_ptr(),
+            None if xch is None else xch.data_ptr(), b, h, w, d, n_dirs, dy,
+            int(close), p1, p2, int(params.min_disparity),
+            int(params.uniqueness_ratio), lr, _CODE[acc_dtype], plan,
+            stream), "v3d_sgm_vertical")
+    if n_dirs == 3:
+        vertical_plan = tuple(plan)
+    if lr >= 0:
+        _build.check(lib.v3d_sgm_lr_check(
+            disp.data_ptr(), rkey.data_ptr(), b, h, w, d,
+            int(params.min_disparity), lr, stream), "v3d_sgm_lr_check")
     wta_launches += 1
     return (disp, margin) if return_margin else disp
 

@@ -426,6 +426,10 @@ class StereoDepthExtractor:
                 if getattr(self.params, f.name) != getattr(default, f.name)
             )
             key += f"+sgbm({diff})"
+        # the trust gate's scale changes the confidence blend's maps (the
+        # JAX key lacks this tag)
+        if guided and self.blend == "confidence" and self.trust_scale != 1:
+            key += f"+ts{self.trust_scale}"
         return key + f"+{BACKEND}"
 
     def _smoother(self):
