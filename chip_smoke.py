@@ -11,10 +11,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    native-int16 variant), B2 horizontal sweeps, B3 vertical sweeps + WTA
    and B4 speckle at two 1080p frames, 1920-wide eyes, D=64, for MODE_SGBM
    (5 paths, int16 accumulator) and B2/B3 again for MODE_HH (8 paths, f32
-   accumulator, bottom-up close), B1, B2 and B3 again at the stage's batch
-   of 8 (rows ``...@8``), and B1 and B3 at the small shapes of
+   accumulator, bottom-up close), B1-B4 again at the stage's batch
+   of 8 (rows ``...@8``), and B1-B4 at the small shapes of
    ``video3d_tpu_torch/tools/card_checks.py`` (ragged widths, short
-   heights, D from 16 to 128, every SGM mode; gated, not timed); B8a
+   heights, D from 16 to 128, every SGM mode, 2 to 65 speckle bands;
+   gated, not timed); B8a
    (``sgm_aggregate_pallas``, 8 paths)
    on f32 and bf16 cost, B8c (W-major sweeps) forward and reverse, and the
    B8b round trip (equal to the input and to ``permute().contiguous()``)
@@ -86,6 +87,11 @@ HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate
 PEAK_OPS_S = {"f32": 67e12, "bf16": 989e12}
 SWEEP_OPS = 9  # per element and direction: 4 min, 4 add/sub, 1 acc add
 WTA_OPS = 8  # per element: the two minima, the right-image min, compares
+# B4 per pixel, counted with running sums whatever implements it: the band
+# (subtract, divide, floor, two clamps), then per cumulative band plane (3 at
+# the defaults) one add and one subtract each for the horizontal and the
+# vertical window, the difference of two planes and the compare
+SPECKLE_OPS = 5 + 3 * 4 + 2
 
 
 def card_line() -> str:
@@ -326,6 +332,11 @@ def main() -> int:
                     cost, pp), 1) / B,
                 work=(vol * (2 + ab) / B, 2 * SWEEP_OPS * vol / B))
         del acc_p
+        hp = sgm.horizontal_plan
+        print(f"{key} is one launch for both directions: {hp[2]} blocks of 4 "
+              f"warps, {hp[0]} resident on each of {hp[1]} multiprocessors, "
+              f"a warp taking {hp[3]} group(s) of rows in turn (batch of "
+              f"{B})")
         if pp is p:
             acc5 = acc
     acc8 = acc
@@ -369,14 +380,14 @@ def main() -> int:
     torch.cuda.synchronize()
     err = (sp - sp_p).abs().max().item()
     check(torch.equal(sp, sp_p), f"B4 differs from twin: {err}")
-    win = (2 * 10 + 1) ** 2  # the vote window at the default radius
     add_row("B4", at=at_1080, name="B4 speckle_filter",
             source="video3d_tpu_torch/csrc/speckle.cu",
             replaces="video3d_tpu/kernels/speckle.py:159", max_abs_err=err,
             ms=cuda_ms(lambda: speckle.speckle_filter(disp, *sp_args), 10) / B,
             plain_ms=cuda_ms(lambda: speckle_filter_device(disp, *sp_args),
                              3) / B,
-            work=(2 * pix * 4 / B, 2 * win * pix / B))
+            # the f32 map read once and written once
+            work=(2 * pix * 4 / B, SPECKLE_OPS * pix / B))
     del disp, sp, sp_p, frames2
     print(f"B3's 3-direction launches are cooperative: "
           f"{sgm.vertical_plan[0]} blocks of {sgm.vertical_plan[5]} columns "
@@ -385,9 +396,10 @@ def main() -> int:
           f"frames a launch ({sgm.vertical_plan[4]} launch for the batch of "
           f"{B})")
 
-    # B1, B2 and B3 again at the stage's batch of 8, where four times the
-    # frames are resident and the sweeps are bound by bytes, not by their
-    # chain; each gated against its twin there too
+    # B1-B4 again at the stage's batch of 8, where four times the frames
+    # are resident, so fewer steps of the sweeps' chains wait for a load
+    # (the sweeps are then bound by the integer operations of a step and,
+    # B2, by its bytes); each gated against its twin there too
     batch8 = 8
     gl8, gr8 = gray_pair(
         torch.from_numpy(sbs_frames(batch8, SEED + 50)).to(dev))
@@ -420,6 +432,10 @@ def main() -> int:
                     ms=cuda_ms(lambda: sgm.horizontal_sweeps(cost8, pp),
                                5) / batch8,
                     work=rows["B2"]["work"])
+            hp = sgm.horizontal_plan
+            print(f"B2 at batch 8: {hp[2]} blocks of 4 warps, {hp[0]} "
+                  f"resident on each of {hp[1]} multiprocessors, a warp "
+                  f"taking {hp[3]} group(s) of rows in turn")
         (disp_p, m_p), plain_ms = timed(
             lambda: sgm.vertical_sweeps_wta_plain(cost8, acc, pp, True))
         acc_scratch = acc.clone()
@@ -431,6 +447,20 @@ def main() -> int:
         check(err <= 1e-5, f"B3{tag} at batch 8 differs from twin: {err}")
         check(torch.allclose(m8, m_p, rtol=1e-6, atol=0.0),
               f"B3{tag} at batch 8: margin differs")
+        if pp is p:
+            sp8 = speckle.speckle_filter(disp8, *sp_args)
+            sp8_p, plain_ms4 = timed(lambda: speckle_filter_device(
+                disp8, *sp_args))
+            check(torch.equal(sp8, sp8_p), "B4 at batch 8 differs from twin")
+            add_row("B4@8", at=at_8, name="B4 speckle_filter, batch 8",
+                    source="video3d_tpu_torch/csrc/speckle.cu",
+                    replaces="video3d_tpu/kernels/speckle.py:159",
+                    max_abs_err=(sp8 - sp8_p).abs().max().item(),
+                    plain_ms=plain_ms4 / batch8,
+                    ms=cuda_ms(lambda: speckle.speckle_filter(
+                        disp8, *sp_args), 10) / batch8,
+                    work=rows["B4"]["work"])
+            del sp8, sp8_p
         del disp_p, m_p, disp8, m8
         add_row(f"B3{tag}@8", at=at_8,
                 name=rows[f"B3{tag}"]["name"] + ", batch 8",
@@ -446,16 +476,23 @@ def main() -> int:
     del cost8
     torch.cuda.empty_cache()
 
-    # B1 and B3 at small shapes that the 1080p run does not stress
+    # B1-B4 at small shapes that the 1080p run does not stress
     for case in card_checks.B1_CASES:
         card_checks.check_b1(dev, *case)
+    for case in card_checks.B2_CASES:
+        card_checks.check_b2(dev, *case)
     for case in card_checks.B3_CASES:
         card_checks.check_b3(dev, *case)
+    for case in card_checks.B4_CASES:
+        card_checks.check_b4(dev, *case)
     print(f"B1 equals its twin at {len(card_checks.B1_CASES)} small shapes "
           f"(D 16-128, widths 33-1000, heights 2-137, min_disparity 0 and "
-          f"3, blocks 3-9); B3 holds its gates at "
+          f"3, blocks 3-9); B2 at {len(card_checks.B2_CASES)} (widths "
+          f"1-1000, int16 and f32 accumulator); B3 holds its gates at "
           f"{len(card_checks.B3_CASES)} (2, 4, 5 and 8 paths, with and "
-          f"without the margin)")
+          f"without the margin); B4 equals its twin at "
+          f"{len(card_checks.B4_CASES)} (2 to 65 bands, min_region 1-400, "
+          f"maps smaller than the window)")
 
     # B8a, the public sgm_aggregate_pallas, at 8 paths on f32 and bf16 cost
     # (the B1 volume as floats); bit-equal to its twin
@@ -784,7 +821,7 @@ def main() -> int:
         rows["B1-i16"]["launches"] = launches[0]
         # the stage runs batches of 8: the same launches, at the @8 rows'
         # shape
-        for key, k in zip(("B1@8", "B2@8", "B3@8"), launches):
+        for key, k in zip(("B1@8", "B2@8", "B3@8", "B4@8"), launches):
             rows[key]["launches"] = k
         check(n == 2 * batch, f"wrote {n} frames")
         maps = read_maps(cache, n)

@@ -6,9 +6,10 @@ on a machine that has a CUDA card and no JAX:
     python -m pytest --noconftest tests/test_torch_card.py -m cuda
 
 Every test is marked ``cuda`` and skips where ``torch.cuda.is_available()``
-is false. B1 and B3 run the small-shape list of
+is false. B1-B4 run the small-shape lists of
 ``video3d_tpu_torch/tools/card_checks.py`` (ragged widths, short heights,
-D from 16 to 128, ``min_disparity`` 3, every SGM mode); the other kernels
+D from 16 to 128, ``min_disparity`` 3, every SGM mode, both accumulator
+types, 2 bands to one a disparity); the other kernels
 run at the shapes of the ``cuda`` tests beside their CPU tests. Gates are
 the smoke's: B1, B2, B4, B8a-c and P bit-exact; B3 identical validity,
 disparity within 1e-5, margin within rtol 1e-6; B5 1e-5; B6 2e-4 px; B7
@@ -20,12 +21,11 @@ import pytest
 import torch
 
 from video3d_tpu_torch import kernels as tkernels
-from video3d_tpu_torch.kernels import (attention, costvol, flowmatch, sgm,
-                                       speckle, warp, wmajor)
+from video3d_tpu_torch.kernels import (attention, flowmatch, sgm, warp,
+                                       wmajor)
 from video3d_tpu_torch.ops import flow as tflow
 from video3d_tpu_torch.ops import stereo
 from video3d_tpu_torch.ops.attention import attention_plain
-from video3d_tpu_torch.ops.speckle import speckle_filter_device
 from video3d_tpu_torch.tools import card_checks, probe_i16
 
 pytestmark = pytest.mark.cuda
@@ -54,32 +54,14 @@ def test_b3_matches_twin(dev, case):
     card_checks.check_b3(dev, *case)
 
 
-@pytest.mark.parametrize("paths", [5, 8])  # int16 and f32 accumulator
-@pytest.mark.parametrize("shape", [(2, 40, 200, 64), (1, 9, 70, 35)])
-def test_b2_matches_twin(dev, shape, paths):
-    b, h, w, d = shape
-    p = stereo.SGBMParams(num_disparities=d, num_paths=paths)
-    gl, gr = card_checks.gray_pair(b, h, w, 3, 4, dev)
-    cost = costvol.cost_volume(gl, gr, p, 2.0 * p.prefilter_cap)
-    n = sgm.sweep_launches
-    acc = sgm.horizontal_sweeps(cost, p)
-    assert sgm.sweep_launches == n + 1
-    assert acc.dtype == (torch.float32 if paths == 8 else torch.int16)
-    assert torch.equal(acc, sgm.horizontal_sweeps_plain(cost, p))
+@pytest.mark.parametrize("case", card_checks.B2_CASES, ids=str)
+def test_b2_matches_twin(dev, case):
+    card_checks.check_b2(dev, *case)
 
 
-@pytest.mark.parametrize("shape,min_region", [((2, 40, 200), 100),
-                                              ((1, 137, 257), 9)])
-def test_b4_matches_twin(dev, shape, min_region):
-    r = np.random.default_rng(3)
-    disp = r.uniform(0, 64, shape).astype(np.float32)
-    disp[r.uniform(size=shape) < 0.3] = -1.0
-    disp = torch.from_numpy(disp).to(dev)
-    n = speckle.launches
-    got = speckle.speckle_filter(disp, -1.0, 32.0, min_region, (0.0, 64.0))
-    assert speckle.launches == n + 1
-    assert torch.equal(got, speckle_filter_device(disp, -1.0, 32.0,
-                                                  min_region))
+@pytest.mark.parametrize("case", card_checks.B4_CASES, ids=str)
+def test_b4_matches_twin(dev, case):
+    card_checks.check_b4(dev, *case)
 
 
 @pytest.mark.parametrize("shape,r", [((270, 480), 6), ((37, 53), 4),

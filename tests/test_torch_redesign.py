@@ -1,4 +1,4 @@
-"""The arithmetic order of the redesigned CUDA kernels B1 and B3, on CPU.
+"""The arithmetic order of the redesigned CUDA kernels B1-B4, on CPU.
 
 The CUDA kernels cannot run here, so plain torch repeats the order in
 which they sum and select, and is held to the twins the card holds the
@@ -14,7 +14,26 @@ kernels to, and to the JAX kernels in interpret mode:
   totals by the ``v*256 + d`` key, the right-image WTA as a scatter-min of
   the same keys into a plane filled with INT_MAX, the LR check after.
   Equal to ``wta_total_dmajor`` on integer totals with many ties.
+- B2 (``csrc/sgm.cu horizontal_kernel``): a row's two directions run from
+  its two ends at the same time, each pixel on ``lanes * runs >= D``
+  disparities with the sentinel cost past D and no mask in the step; up to
+  the middle each stores its own path sum, past it each adds its own to
+  what the other stored, an odd width's middle pixel gets both at once; the
+  other's sum comes from a ring filled ``HPF`` iterations ahead (before that
+  iteration's stores) where it was stored by then, else straight from the
+  accumulator. Bit-equal to ``horizontal_sweeps_plain`` and to JAX
+  ``_directional_pass_dmajor`` run forward then reverse.
+- B4 (``csrc/speckle.cu``): the band from the twin's expression; for up to
+  four bands the cumulative band indicators as the bytes of a 32-bit word,
+  a horizontal window sum of the words, a ring of 2r+1 rows of them and a
+  running vertical sum in 16-bit fields; for more bands a ring of band
+  codes, a per-column histogram of the ring in bytes and a horizontal sum
+  of three bands of it; segments of rows warm up over r rows above them.
+  Bit-equal to ``speckle_filter_device`` and to JAX ``speckle_filter_pallas``.
 """
+
+import ctypes
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,8 +41,14 @@ import pytest
 import torch
 
 from video3d_tpu.kernels.costvol import fused_cost_volume
-from video3d_tpu_torch.kernels import costvol
+from video3d_tpu.kernels.sgm import _directional_pass_dmajor
+from video3d_tpu.kernels.speckle import (speckle_block_rows,
+                                         speckle_filter_pallas)
+from video3d_tpu.ops.speckle import speckle_filter_device as jax_speckle
+from video3d_tpu_torch.kernels import _build, costvol, sgm
 from video3d_tpu_torch.ops import stereo
+from video3d_tpu_torch.ops.speckle import (speckle_filter_device,
+                                           speckle_geometry)
 
 INT_MAX = 2**31 - 1
 
@@ -185,3 +210,247 @@ def test_b3_close_order_equals_wta_twin(dtype, w, nd, min_d, lr, uniq):
     assert torch.equal(got, want)
     assert torch.equal(got_m, want_m)
     assert 0.05 < (got >= min_d).float().mean() < 0.95
+
+
+HPF = 8  # pixels in flight per scan line of horizontal_kernel
+
+
+def b2_kernel_order(cost, p, hpf=HPF):
+    """Sum of both horizontal paths of a (B, H, W, D) int16 cost in the
+    order of ``horizontal_kernel``; memory it may not read yet holds a
+    poison value."""
+    b, h, w, d = cost.shape
+    lanes, runs = ((8, 4) if d <= 32 else (16, 4) if d <= 64 else
+                   (32, 3) if d <= 96 else (32, 4))
+    dp = lanes * runs
+    p1, p2 = stereo.integral_penalties(p.p1, p.p2)
+    sent, poison = stereo._SENT, -(1 << 24)
+    c = torch.full((b * h, w, dp), sent, dtype=torch.int32)
+    c[:, :, :d] = cost.reshape(b * h, w, d).to(torch.int32)
+    acc = torch.full((b * h, w, d), poison, dtype=torch.int32)
+    edge = torch.full((b * h, 1), sent, dtype=torch.int32)
+
+    def step(carry, cost_px):  # sgm_step: no mask past D
+        m = carry.amin(dim=1, keepdim=True)
+        dn = torch.cat([edge, carry[:, :-1]], dim=1)
+        up = torch.cat([carry[:, 1:], edge], dim=1)
+        best = torch.minimum(torch.minimum(carry, m + p2),
+                             torch.minimum(up, dn) + p1)
+        return (cost_px - m) + best
+
+    ring = [None] * hpf
+
+    def fetch(s):  # started before the stores of the iteration that calls it
+        sums = ((acc[:, s].clone(), acc[:, w - 1 - s].clone())
+                if 2 * s >= w + hpf else (None, None))
+        ring[s % hpf] = (c[:, s], c[:, w - 1 - s]) + sums
+
+    for s in range(min(hpf, w)):
+        fetch(s)
+    lf = torch.zeros((b * h, dp), dtype=torch.int32)
+    lr = torch.zeros_like(lf)
+    for t in range(w):
+        cf, cr, af, ar = ring[t % hpf]
+        second, ringed = 2 * t > w - 1, 2 * t >= w + hpf
+        assert ringed == (af is not None)
+        if t + hpf < w:
+            fetch(t + hpf)
+        if second and not ringed:
+            af, ar = acc[:, t].clone(), acc[:, w - 1 - t].clone()
+        lf, lr = step(lf, cf), step(lr, cr)
+        if 2 * t == w - 1:
+            acc[:, t] = (lf + lr)[:, :d]
+            continue
+        if second:
+            assert (af != poison).all() and (ar != poison).all()
+        else:
+            af = ar = 0
+        acc[:, t] = af + lf[:, :d]
+        acc[:, w - 1 - t] = ar + lr[:, :d]
+    assert (acc != poison).all()
+    return acc.view(b, h, w, d).to(
+        stereo.acc_dtype_for_params(cost.dtype, p))
+
+
+@pytest.mark.parametrize("paths", [5, 8])  # int16 and f32 accumulator
+@pytest.mark.parametrize("b,h,w,d,with_jax", [
+    (2, 3, 37, 16, True), (1, 3, 40, 16, False), (1, 2, 1, 16, False),
+    (1, 2, 2, 16, False), (1, 2, 5, 35, True), (1, 2, 7, 64, False),
+    (1, 3, 16, 64, False), (1, 2, 17, 64, True), (1, 2, 24, 35, False),
+    (1, 2, 33, 70, True), (1, 2, 9, 128, True), (1, 2, 26, 128, False),
+])
+def test_b2_order_bit_equal_to_twin_and_jax(b, h, w, d, with_jax, paths):
+    """Widths around 2 * HPF, odd and even, below 8 and of 1 and 2; D on
+    every lane layout, with and without a ragged tail. One case of each
+    layout also runs the JAX kernel (the twin is held to it at the other
+    shapes' kind in ``tests/test_torch_kernels.py``)."""
+    r = np.random.default_rng(51)
+    cost_np = r.integers(0, 1551, (b, h, w, d)).astype(np.int16)
+    p = stereo.SGBMParams(num_disparities=d, num_paths=paths)
+    cost = torch.from_numpy(cost_np)
+    got = b2_kernel_order(cost, p)
+    want = sgm.horizontal_sweeps_plain(cost, p)
+    assert got.dtype == want.dtype == (torch.float32 if paths == 8
+                                       else torch.int16)
+    assert torch.equal(got, want)
+    if not with_jax:
+        return
+    cost_t = jnp.asarray(cost_np.transpose(0, 2, 3, 1))  # lines along W
+    acc_t = _directional_pass_dmajor(
+        cost_t, None, (0,), p.p1, p.p2, False, interpret=True,
+        acc_dtype=jnp.float32 if paths == 8 else jnp.int16)
+    acc_t = _directional_pass_dmajor(cost_t, acc_t, (0,), p.p1, p.p2, True,
+                                     interpret=True)
+    np.testing.assert_array_equal(got.permute(0, 2, 3, 1).numpy(),
+                                  np.asarray(acc_t))
+
+
+def b4_kernel_order(disp, invalid, max_diff, min_region,
+                    value_range=(0.0, 64.0), seg=64):
+    """The speckle vote of a (B, H, W) f32 map in the order of
+    ``speckle_kernel``, with its counter widths."""
+    radius, n, lo = speckle_geometry(max_diff, min_region, value_range)
+    assert n < 255 and radius <= 127  # what the C entry takes
+    b, h, w = disp.shape
+    win = 2 * radius + 1
+    valid = disp != invalid
+    band = torch.clamp(torch.floor((disp - lo) / float(max_diff)).to(
+        torch.int64), 0, n - 1)
+    code = torch.where(valid, band, 255)
+    none = torch.full((b, w), 255, dtype=torch.int64)
+    out = torch.full_like(disp, float("nan"))
+    u32, lo16 = 0xFFFFFFFF, 0x00FF00FF
+
+    def window(x):  # the 2r+1 columns around each column, zero outside
+        xp = torch.nn.functional.pad(x, (radius, radius))
+        return sum(xp[..., k:k + w] for k in range(win))
+
+    for y0 in range(0, h, seg):
+        y1 = min(y0 + seg, h)
+        even = torch.zeros((b, w), dtype=torch.int64)
+        odd = torch.zeros_like(even)
+        ring = torch.zeros((win, b, w), dtype=torch.int64)
+        hist = torch.zeros((n, b, w), dtype=torch.int64)
+        codes = none.repeat(win, 1, 1)
+        slot = 0
+        for i, yy in enumerate(range(y0 - radius, y1 + radius)):
+            k = code[:, yy] if 0 <= yy < h else none
+            full = i >= win
+            if n <= 4:
+                ind = torch.where(k != 255, (0x01010101 << (8 * k)) & u32, 0)
+                hs = window(ind)
+                assert ((hs >> 8 * 3) <= 255).all()  # no byte carried over
+                old = ring[slot].clone() if full else torch.zeros_like(hs)
+                ring[slot] = hs
+                even = (even + (hs & lo16) - (old & lo16)) & u32
+                odd = (odd + ((hs >> 8) & lo16) - ((old >> 8) & lo16)) & u32
+            else:
+                old = codes[slot].clone() if full else none
+                codes[slot] = k
+                for j in range(n):
+                    hist[j] += (k == j).long() - (old == j).long()
+                assert (hist >= 0).all() and (hist <= 255).all()
+            yo = yy - radius
+            if yo >= y0:
+                ko = band[:, yo]
+                if n <= 4:
+                    def field(j):
+                        word = torch.where(j % 2 == 1, odd, even)
+                        return (word >> (16 * (j // 2))) & 0xFFFF
+
+                    support = field(torch.clamp(ko + 1, max=n - 1)) - \
+                        torch.where(ko >= 2, field(torch.clamp(ko - 2, min=0)),
+                                    0)
+                else:
+                    hw = window(hist)  # (n, b, w)
+                    support = torch.zeros((b, w), dtype=torch.int64)
+                    for dj in (-1, 0, 1):
+                        j = ko + dj
+                        ok = (j >= 0) & (j < n)
+                        support += torch.where(ok, torch.gather(
+                            hw, 0, j.clamp(0, n - 1).unsqueeze(0))[0], 0)
+                assert (support <= win * win).all() and (support >= 0).all()
+                keep = valid[:, yo] & (support >= min_region)
+                out[:, yo] = torch.where(keep, disp[:, yo],
+                                         torch.full_like(disp[:, yo],
+                                                         float(invalid)))
+            slot = (slot + 1) % win
+    return out
+
+
+def _speckle_map(seed, shape, fill):
+    r = np.random.default_rng(seed)
+    disp = r.uniform(0, 64, shape).astype(np.float32)
+    # blobs of a few bands, so some pixels pass and some fail the vote
+    disp[:, : shape[1] // 2] = np.floor(disp[:, : shape[1] // 2] / 24) * 24
+    if fill == "random":
+        disp[r.uniform(size=shape) < 0.3] = -1.0
+    elif fill == "invalid":
+        disp[:] = -1.0
+    return disp
+
+
+@pytest.mark.parametrize("shape,min_region,max_diff,fill,seg,pallas", [
+    ((1, 24, 64), 100, 32.0, "random", 64, True),  # 3 bands, the defaults
+    ((1, 16, 96), 9, 32.0, "random", 64, True),
+    ((2, 24, 64), 100, 32.0, "random", 7, False),  # segments with warm-up
+    ((1, 16, 33), 1, 32.0, "random", 5, False),    # radius 2
+    ((1, 24, 17), 100, 32.0, "random", 64, False),  # W below 2r+1
+    ((1, 9, 40), 100, 32.0, "random", 4, False),   # H below 2r+1 and r
+    ((1, 24, 30), 400, 32.0, "random", 64, False),  # radius 20
+    ((1, 24, 64), 100, 64.0, "random", 16, True),  # 2 bands
+    ((1, 16, 24), 9, 16.0, "random", 16, True),    # 5 bands: the histogram
+    ((1, 24, 64), 100, 8.0, "random", 10, False),  # 9 bands
+    ((1, 48, 40), 400, 8.0, "random", 64, False),
+    ((1, 24, 64), 1, 8.0, "random", 64, False),
+    ((1, 24, 64), 100, 32.0, "valid", 64, False),
+    ((1, 24, 64), 9, 8.0, "valid", 5, False),
+    ((1, 24, 64), 100, 32.0, "invalid", 64, False),
+    ((1, 24, 64), 9, 8.0, "invalid", 64, False),
+])
+def test_b4_order_bit_equal_to_twin_and_jax(shape, min_region, max_diff,
+                                            fill, seg, pallas):
+    """Against the twin and the JAX package: its Pallas kernel in interpret
+    mode (slow to trace, so at one shape per band layout) or its jnp
+    function, to which that kernel is bit-identical by its own tests."""
+    disp = _speckle_map(61, shape, fill)
+    got = b4_kernel_order(torch.from_numpy(disp), -1.0, max_diff, min_region,
+                          seg=seg)
+    want = speckle_filter_device(torch.from_numpy(disp), -1.0, max_diff,
+                                 min_region)
+    assert torch.equal(got, want)
+    if fill == "random" and 1 < min_region < 400:
+        assert 0.0 < (got != -1.0).float().mean().item() < 0.75
+    if pallas:
+        radius = speckle_geometry(max_diff, min_region, (0.0, 64.0))[0]
+        assert speckle_block_rows(shape[1], radius) is not None
+        jax_out = speckle_filter_pallas(jnp.asarray(disp), invalid=-1.0,
+                                        max_diff=max_diff,
+                                        min_region=min_region, interpret=True)
+    else:
+        jax_out = jax_speckle(jnp.asarray(disp), -1.0, max_diff, min_region)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jax_out))
+
+
+def _c_entries():
+    """name -> ctypes argument list of every ``extern "C" int`` function in
+    the CUDA sources, read from its declaration."""
+    kinds = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
+             "float": ctypes.c_float}
+    entries = {}
+    for src in sorted(_build._SRC_DIR.glob("*.cu")):
+        for name, args in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
+                                     src.read_text()):
+            entries[name] = [
+                kinds[" ".join(w for w in a.split()[:-1] if w != "const")]
+                for a in args.split(",")]
+    return entries
+
+
+@pytest.mark.parametrize("name", sorted(_build._SIGNATURES))
+def test_ctypes_signature_matches_c_declaration(name):
+    """ctypes checks nothing: a wrapper's argument list that drifts from the
+    C declaration passes garbage to the kernel."""
+    entries = _c_entries()
+    assert sorted(entries) == sorted(_build._SIGNATURES)
+    assert entries[name] == _build._SIGNATURES[name]

@@ -1,8 +1,9 @@
 // Kernels B2, B3 and B8a: semi-global path sweeps and winner-take-all.
 //
 // Replace the TPU kernels video3d_tpu/kernels/sgm.py
-// _directional_pass_dmajor (body _row_kernel_dmajor; B2, one sweep of the
-// int16 volume with an int16 or f32 accumulator), sgm_wta_pallas_dmajor
+// _directional_pass_dmajor (body _row_kernel_dmajor; B2, the two horizontal
+// sweeps of the int16 volume into an int16 or f32 accumulator, which the
+// TPU runs as two calls), sgm_wta_pallas_dmajor
 // (body _final_wta_kernel_dmajor; B3, the vertical sweeps fused with WTA:
 // top-down for MODE_SGBM, top-down then bottom-up for 4 and 8 paths) and
 // _directional_pass (body _row_kernel; B8a, the sweeps of
@@ -11,18 +12,31 @@
 // VMEM, all vertical directions and the WTA in one walk down the rows, the
 // total never stored.
 //
-// B2 and B8a, sweep_kernel: every SGM direction is a set of independent
-// 1-D scan lines (rows for the horizontals, columns for the verticals,
-// diagonal lines that start on the first row of the sweep or on the
-// left/right edge -- the TPU's zero lateral fill). One warp owns one scan
-// line, each lane DPL consecutive disparities, the carry in registers; the
-// min over D is a __shfl_xor butterfly and the d-1/d+1 neighbours come
-// over __shfl_up/down, with a sentinel past both ends of d. The next
-// pixel's cost and accumulator are loaded before the current step is
-// computed. One launch per direction reads the cost and read-modify-writes
-// the accumulator (796 MB a 1080p frame at D=64 in int16): with few frames
-// resident the serial chain of W or H steps bounds it, at a batch of 8 the
-// integer operations of a step do, before the bytes.
+// B8a, sweep_kernel: every SGM direction is a set of independent 1-D scan
+// lines (rows for the horizontals, columns for the verticals, diagonal
+// lines that start on the first row of the sweep or on the left/right edge
+// -- the TPU's zero lateral fill). One warp owns one scan line, each lane
+// DPL consecutive disparities, the carry in registers; the min over D is a
+// __shfl_xor butterfly and the d-1/d+1 neighbours come over
+// __shfl_up/down, with a sentinel past both ends of d. The next pixel's
+// cost and accumulator are loaded before the current step is computed. One
+// launch per direction reads the cost and read-modify-writes the
+// accumulator.
+//
+// B2, horizontal_kernel: both horizontal directions in one launch. The
+// second direction to reach a pixel needs the first one's sum for it, and
+// a row's sums (245 KB at 1080p, D=64) times the rows it takes to fill the
+// card do not fit shared memory or the L2, so the work moves the cost
+// twice and the accumulator three times whatever the order: 1,325 MB a
+// 1080p frame at D=64 in int16 (0.40 ms at 3.35 TB/s) against the 530 MB
+// (0.16 ms) of reading the cost and writing the sum once. What the design
+// saves is operations, latency and a launch: a row's pixel is held by
+// lanes_per_pixel lanes with three or four disparities each, as in B3, so
+// the rows of a warp share a step's shuffles; a thread runs the row's two
+// directions as two independent chains from the two ends, which cross in
+// the middle (see the kernel); every line keeps HPF pixels in flight by
+// asynchronous copies; moves are 8 or 16 bytes a lane; and the grid is
+// sized from the occupancy, each warp taking rows in turn.
 //
 // B3, vertical_kernel: what the work needs is the cost and the horizontal
 // accumulator read once and two small planes written -- 530 MB a 1080p
@@ -106,23 +120,16 @@ constexpr unsigned FULL = 0xffffffffu;
 // type codes of the C interface
 enum { T_I16 = 0, T_F32 = 1, T_BF16 = 2 };
 
-__device__ __forceinline__ int vmin(int a, int b) { return min(a, b); }
 __device__ __forceinline__ float vmin(float a, float b) { return fminf(a, b); }
 
 template <typename C>
 __device__ __forceinline__ C sentinel();
 template <>
-__device__ __forceinline__ int sentinel<int>() { return SENT; }
-template <>
 __device__ __forceinline__ float sentinel<float>() { return BIGF; }
 
 template <typename C>
-__device__ __forceinline__ C load(const int16_t* p, long long i) {
-  return (C)p[i];
-}
-template <typename C>
 __device__ __forceinline__ C load(const float* p, long long i) {
-  return (C)p[i];  // an f32 accumulator of integer totals: exact in int
+  return (C)p[i];
 }
 template <typename C>
 __device__ __forceinline__ C load(const __nv_bfloat16* p, long long i) {
@@ -165,7 +172,7 @@ __device__ __forceinline__ void line_start(int i, int H, int W, int dy,
   *len = min(ylen, xlen);
 }
 
-// CT cost, AT accumulator, C compute type (int for int16 cost, else float)
+// CT cost (f32 or bf16), AT accumulator and C compute type (both f32)
 template <typename CT, typename AT, typename C, int DPL>
 __global__ void sweep_kernel(const CT* __restrict__ cost, const AT* acc_in,
                              AT* acc_out, int H, int W, int D, int dy, int dx,
@@ -348,6 +355,178 @@ __device__ __forceinline__ void sgm_step(const int (&L)[DPL],
     int up = j < DPL - 1 ? L[j + 1] : above;
     int best = min(min(L[j], mp2), min(up, dn) + p1);
     Ln[j] = (c[j] - m) + best;
+  }
+}
+
+constexpr int HPF = 8;  // pixels in flight per scan line of B2 (power of 2)
+constexpr int HW = 4;   // warps of a horizontal block
+static_assert(HPF >= 1 && (HPF & (HPF - 1)) == 0, "ring slots");
+
+// one pixel's D values of type T from global memory into a ring slot: 16
+// bytes a lane, asynchronously, where every pixel starts on a 16-byte
+// boundary (vec); else each lane its own values with plain loads
+template <typename T, int DPL>
+__device__ __forceinline__ void fetch_pixel(char* slot, const T* src, int D,
+                                            int dl, int d0, bool vec,
+                                            bool active) {
+  if (vec) {
+    if (active && dl < D * (int)sizeof(T) / 16)
+      cp_async16(slot + dl * 16, (const char*)src + dl * 16);
+  } else if (active) {
+#pragma unroll
+    for (int j = 0; j < DPL; ++j)
+      if (d0 + j < D) ((T*)slot)[d0 + j] = src[d0 + j];
+  }
+}
+
+// a lane's DPL values of a pixel at p, D of them real: whole runs where D
+// is a multiple of the run (vec), else value by value
+template <typename T, int DPL>
+__device__ __forceinline__ void load_pixel(const T* p, int D, int d0,
+                                           bool vec, int (&out)[DPL]) {
+  if (DPL == 4 && vec) {
+    if (d0 < D) load_run<T, DPL>(p + d0, out);
+  } else {
+#pragma unroll
+    for (int j = 0; j < DPL; ++j)
+      if (d0 + j < D) out[j] = (int)p[d0 + j];
+  }
+}
+
+template <typename T, int DPL>
+__device__ __forceinline__ void store_pixel(T* p, int D, int d0, bool vec,
+                                            const int (&v)[DPL]) {
+  if (DPL == 4 && vec) {
+    if (d0 < D) store_run<T, DPL>(p + d0, v);
+  } else {
+#pragma unroll
+    for (int j = 0; j < DPL; ++j)
+      if (d0 + j < D) p[d0 + j] = (T)v[j];
+  }
+}
+
+// B2: both horizontal sweeps of the rows (B * H of them, W pixels of D
+// int16 costs each) in one launch; acc receives the sum of the two paths
+// and is not read before it is written.
+//
+// A row is held by LPP lanes with DPL adjacent disparities each, so a warp
+// carries 32 / LPP rows and shares every shuffle of a step between them.
+// The same lanes run the row's two directions at the same time, from the
+// two ends: in iteration t the left-to-right line is at x = t and the
+// right-to-left one at x = W - 1 - t, two independent chains a thread. Up
+// to the middle of the row each stores its own path sum to acc; past it
+// each finds the other's sum there, adds its own and stores the total; an
+// odd width's middle pixel gets the sum of the two straight from the
+// registers. The sums are exact integers (int16, or integer totals in
+// f32), so the order of the two additions changes no bit.
+// Each line keeps HPF pixels in flight, copied asynchronously into its own
+// ring of shared-memory slots: the cost and, past the middle, the other
+// line's sum. The copy for iteration s is started in iteration s - HPF,
+// before that iteration's stores, and the other line stored that pixel in
+// iteration W - 1 - s: so the ring holds the sum only from 2 s >= W + HPF
+// on, and the few pixels just past the middle are read straight from acc
+// when they are needed (the lane reads what it stored itself). acc is
+// never read through the non-coherent path.
+// The grid is sized by the host from the occupancy: a warp takes row
+// groups g, g + warps, ... in turn.
+template <typename AT, int LPP, int DPL>
+__global__ void __launch_bounds__(HW * 32)
+horizontal_kernel(const int16_t* __restrict__ cost, AT* acc, int rows, int W,
+                  int D, int p1, int p2) {
+  extern __shared__ int4 hsm4[];
+  constexpr int PPW = 32 / LPP;  // rows of a warp
+  constexpr int DP = LPP * DPL;  // disparities a pixel's lanes hold
+  constexpr int SLOT = DP * (2 + (int)sizeof(AT));  // bytes: cost, then sum
+  const int lane = threadIdx.x & 31, dl = lane % LPP, d0 = dl * DPL;
+  const int wib = threadIdx.x >> 5;
+  // this row's rings: HPF slots left-to-right, then HPF right-to-left
+  char* ring = (char*)hsm4 + (wib * PPW + lane / LPP) * (2 * HPF * SLOT);
+  const bool vec_c = (D * 2) % 16 == 0;
+  const bool vec_a = (D * (int)sizeof(AT)) % 16 == 0;
+  const int groups = (rows + PPW - 1) / PPW;
+  const int warps = gridDim.x * HW;
+
+  for (int g = blockIdx.x * HW + wib; g < groups; g += warps) {
+    const int row = g * PPW + lane / LPP;
+    const bool active = row < rows;
+    const int16_t* crow = cost + (long long)row * W * D;
+    AT* arow = acc + (long long)row * W * D;
+    auto fetch = [&](int s) {  // the pixels of iteration s into slot s % HPF
+      char* sf = ring + (s & (HPF - 1)) * SLOT;
+      char* sr = sf + HPF * SLOT;
+      const long long of = (long long)s * D, orv = (long long)(W - 1 - s) * D;
+      fetch_pixel<int16_t, DPL>(sf, crow + of, D, dl, d0, vec_c, active);
+      fetch_pixel<int16_t, DPL>(sr, crow + orv, D, dl, d0, vec_c, active);
+      if (2 * s >= W + HPF) {
+        fetch_pixel<AT, DPL>(sf + DP * 2, arow + of, D, dl, d0, vec_a, active);
+        fetch_pixel<AT, DPL>(sr + DP * 2, arow + orv, D, dl, d0, vec_a,
+                             active);
+      }
+    };
+    __syncwarp();  // the rings are free of the group before
+#pragma unroll
+    for (int s = 0; s < HPF; ++s) {
+      if (s < W) fetch(s);
+      cp_async_commit();
+    }
+    int Lf[DPL], Lr[DPL];  // carries start at zero
+#pragma unroll
+    for (int j = 0; j < DPL; ++j) Lf[j] = Lr[j] = 0;
+
+    for (int t = 0; t < W; ++t) {
+      const bool second = 2 * t > W - 1;  // the other line was here first
+      const bool ringed = 2 * t >= W + HPF;  // and its sum is in the ring
+      int cf[DPL], cr[DPL], af[DPL], ar[DPL];
+#pragma unroll
+      for (int j = 0; j < DPL; ++j) af[j] = ar[j] = 0;
+      cp_async_wait<HPF - 1>();  // iteration t's pixels have landed
+      __syncwarp();
+      {
+        const char* sf = ring + (t & (HPF - 1)) * SLOT;
+        const char* sr = sf + HPF * SLOT;
+        load_run<int16_t, DPL>((const int16_t*)sf + d0, cf);
+        load_run<int16_t, DPL>((const int16_t*)sr + d0, cr);
+        if (ringed) {
+          load_run<AT, DPL>((const AT*)(sf + DP * 2) + d0, af);
+          load_run<AT, DPL>((const AT*)(sr + DP * 2) + d0, ar);
+        }
+#pragma unroll
+        for (int j = 0; j < DPL; ++j)  // the only mask of the step
+          if (d0 + j >= D) cf[j] = cr[j] = SENT;
+      }
+      __syncwarp();  // the slot is free for iteration t + HPF
+      if (t + HPF < W) fetch(t + HPF);
+      cp_async_commit();
+
+      AT* pf = arow + (long long)t * D;
+      AT* pr = arow + (long long)(W - 1 - t) * D;
+      if (second && !ringed && active) {
+        load_pixel<AT, DPL>(pf, D, d0, vec_a, af);
+        load_pixel<AT, DPL>(pr, D, d0, vec_a, ar);
+      }
+      int Ln[DPL];
+      sgm_step<LPP, DPL>(Lf, cf, Ln, dl, p1, p2);
+#pragma unroll
+      for (int j = 0; j < DPL; ++j) Lf[j] = Ln[j];
+      sgm_step<LPP, DPL>(Lr, cr, Ln, dl, p1, p2);
+#pragma unroll
+      for (int j = 0; j < DPL; ++j) Lr[j] = Ln[j];
+      if (2 * t == W - 1) {  // the middle pixel of an odd width
+#pragma unroll
+        for (int j = 0; j < DPL; ++j) af[j] = Lf[j] + Lr[j];
+        if (active) store_pixel<AT, DPL>(pf, D, d0, vec_a, af);
+      } else {
+#pragma unroll
+        for (int j = 0; j < DPL; ++j) {
+          af[j] += Lf[j];
+          ar[j] += Lr[j];
+        }
+        if (active) {
+          store_pixel<AT, DPL>(pf, D, d0, vec_a, af);
+          store_pixel<AT, DPL>(pr, D, d0, vec_a, ar);
+        }
+      }
+    }
   }
 }
 
@@ -711,6 +890,64 @@ int sweep_dpl(const void* cost, const void* acc_in, void* acc_out, int B,
   }
 }
 
+// B2's launch: as many warps as the card holds at once, or, where the row
+// groups need several rounds, as many as share them out evenly, each warp
+// taking its groups in turn. plan, when not NULL, receives four host ints:
+// blocks per multiprocessor, multiprocessors, blocks launched, rounds.
+template <typename AT, int LPP, int DPL>
+int launch_horizontal(const void* cost, void* acc, long long rows, int W,
+                      int D, int p1, int p2, int* plan, cudaStream_t s) {
+  auto kernel = horizontal_kernel<AT, LPP, DPL>;
+  const int ppw = 32 / LPP;
+  const size_t smem =
+      (size_t)HW * ppw * 2 * HPF * LPP * DPL * (2 + sizeof(AT));
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess)
+    return (int)e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, HW * 32, smem)) != cudaSuccess)
+    return (int)e;
+  if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
+  if (rows > INT_MAX) return (int)cudaErrorInvalidValue;
+  const long long groups = (rows + ppw - 1) / ppw;
+  const long long resident = (long long)per_sm * sms * HW;  // warps
+  const long long rounds = (groups + resident - 1) / resident;
+  const long long warps = (groups + rounds - 1) / rounds;
+  const int blocks = (int)((warps + HW - 1) / HW);
+  if (plan) {
+    plan[0] = per_sm;
+    plan[1] = sms;
+    plan[2] = blocks;
+    plan[3] = (int)rounds;
+  }
+  if (blocks < 1) return (int)cudaSuccess;
+  kernel<<<blocks, HW * 32, smem, s>>>((const int16_t*)cost, (AT*)acc,
+                                       (int)rows, W, D, p1, p2);
+  return (int)cudaGetLastError();
+}
+
+// lanes a pixel and disparities a lane by D, as lanes_per_pixel
+template <typename AT>
+int horizontal_shape(const void* cost, void* acc, long long rows, int W,
+                     int D, int p1, int p2, int* plan, cudaStream_t s) {
+  if (D < 1 || D > 128 || W < 1) return (int)cudaErrorInvalidValue;
+  if (D <= 32)
+    return launch_horizontal<AT, 8, 4>(cost, acc, rows, W, D, p1, p2, plan,
+                                       s);
+  if (D <= 64)
+    return launch_horizontal<AT, 16, 4>(cost, acc, rows, W, D, p1, p2, plan,
+                                        s);
+  if (D <= 96)
+    return launch_horizontal<AT, 32, 3>(cost, acc, rows, W, D, p1, p2, plan,
+                                        s);
+  return launch_horizontal<AT, 32, 4>(cost, acc, rows, W, D, p1, p2, plan, s);
+}
+
 // Warps of a vertical block for B frames of width W: 32 (one block a
 // multiprocessor, strips twice as wide, so half as many edge exchanges and
 // blocks in lockstep) where the launches of such blocks are at least four
@@ -839,27 +1076,37 @@ int vertical_shape(const void* cost, void* acc, float* disp, float* margin,
 
 }  // namespace
 
-// One SGM direction (dy, dx) over the (B, H, W, D) cost, added into
-// acc_out; acc_in is NULL for a fresh accumulation or equal to acc_out.
-// (cost_type, acc_type): (int16, int16) and (int16, f32) compute in int32
-// with whole penalties; (f32, f32) and (bf16, f32) compute in f32.
+// B8a: one SGM direction (dy, dx) over the (B, H, W, D) f32 or bf16 cost
+// (cost_type), added into the f32 acc_out in f32; acc_in is NULL for a
+// fresh accumulation or equal to acc_out.
 extern "C" int v3d_sgm_sweep(void* cost, void* acc_in, void* acc_out, int B,
                              int H, int W, int D, int dy, int dx, float p1,
                              float p2, int cost_type, int acc_type,
                              void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (cost_type == T_I16 && acc_type == T_I16)
-    return sweep_dpl<int16_t, int16_t, int>(cost, acc_in, acc_out, B, H, W,
-                                            D, dy, dx, (int)p1, (int)p2, s);
-  if (cost_type == T_I16 && acc_type == T_F32)
-    return sweep_dpl<int16_t, float, int>(cost, acc_in, acc_out, B, H, W, D,
-                                          dy, dx, (int)p1, (int)p2, s);
   if (cost_type == T_F32 && acc_type == T_F32)
     return sweep_dpl<float, float, float>(cost, acc_in, acc_out, B, H, W, D,
                                           dy, dx, p1, p2, s);
   if (cost_type == T_BF16 && acc_type == T_F32)
     return sweep_dpl<__nv_bfloat16, float, float>(cost, acc_in, acc_out, B, H,
                                                   W, D, dy, dx, p1, p2, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// B2: the sum of the left-to-right and the right-to-left path over the
+// (B, H, W, D) int16 cost into acc, int16 or f32 (acc_type), every element
+// written; one launch. plan as launch_horizontal.
+extern "C" int v3d_sgm_horizontal(void* cost, void* acc, int B, int H, int W,
+                                  int D, int p1, int p2, int acc_type,
+                                  void* plan, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const long long rows = (long long)B * H;
+  if (acc_type == T_I16)
+    return horizontal_shape<int16_t>(cost, acc, rows, W, D, p1, p2,
+                                     (int*)plan, s);
+  if (acc_type == T_F32)
+    return horizontal_shape<float>(cost, acc, rows, W, D, p1, p2, (int*)plan,
+                                   s);
   return (int)cudaErrorInvalidValue;
 }
 

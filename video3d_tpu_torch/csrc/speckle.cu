@@ -4,100 +4,176 @@
 // speckle_filter_pallas (body _speckle_kernel), which walks row blocks with
 // a VMEM ring of band masks and running column sums.
 //
-// What bounds it on the H100: it reads and writes one f32 disparity map
-// (2 x 33 MB for two 1080p frames, ~0.02 ms at 3.35 TB/s); the work is the
-// (2r+1)^2 = 441-tap window count per pixel at the default r = 10.
+// What bounds it on the H100: the bytes. It reads and writes one f32
+// disparity map (2 x 8.3 MB a 1080p frame, 0.005 ms at 3.35 TB/s), and
+// counted with running sums the window costs a few adds a pixel (tap by
+// tap it would be 441 taps of ~5 operations at the default r = 10).
 //
-// Simple design: a first kernel turns each pixel into one band byte (255
-// for invalid pixels). The vote kernel stages a tile of band bytes with an
-// r-pixel halo in shared memory (255 outside the image, so the window is
-// border-clipped) and each thread counts, in a direct loop, the bytes of
-// its window that lie in its own or an adjacent band. Counts are exact
-// integers, so the result is bit-identical to the plain twin.
+// A valid pixel of band k keeps its value when at least min_region valid
+// pixels of bands k-1..k+1 lie in its border-clipped (2r+1)^2 window. One
+// kernel: a block of T threads takes a strip of T - 2r output columns plus
+// an r-pixel halo on each side, one thread a column, and walks down a
+// segment of SEG rows plus r rows above and below. Per input row a thread
+// turns its f32 disparity into a band with the twin's own expression; the
+// output row is r rows behind the input row, and pixels outside the image
+// count as invalid (the border-clipped window).
+//
+// Few bands (n_bands <= 4, the default's 3): the cumulative indicators
+// C_j = "valid and band <= j" of a pixel are one byte each of a 32-bit
+// word, so one add serves all planes. A row's words go to shared memory,
+// each output column adds the 2r+1 words around it (the horizontal window
+// counts, at most 2r+1 <= 255 a byte), keeps the last 2r+1 rows of these in
+// its own column of a shared-memory ring, and holds the running vertical
+// sum in two registers of 16-bit fields (add the row that enters, subtract
+// the one that leaves; at most (2r+1)^2 <= 65535 a field). The support of
+// band k is field(min(k+1, n-1)) - field(k-2).
+//
+// Many bands (a small max_diff gives up to 254): a plane per band would
+// cost n adds a pixel and n bytes a ring entry. Instead the vertical sum
+// comes first and per band: a ring of the last 2r+1 rows of band codes and,
+// per column, a histogram over the bands of the codes in the ring (one
+// increment for the row that enters, one decrement for the one that
+// leaves; at most 2r+1 <= 255, a byte). An output pixel of band k then adds
+// the histogram entries of bands k-1..k+1 over the 2r+1 columns around it.
+//
+// Counts are exact integers either way, so the result is bit-identical to
+// the plain twin. The C entry refuses what the counters cannot hold
+// (r > 127, more than 254 bands) and what shared memory cannot (the launch
+// attribute's error) rather than wrap.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int TW = 32, TH = 8;
+constexpr int SEG = 64;         // output rows of a block
+constexpr int PLANE_BANDS = 4;  // bands that fit the bytes of a word
+constexpr int NO_BAND = 255;    // the code of an invalid pixel
 
-__global__ void band_kernel(const float* __restrict__ disp,
-                            uint8_t* __restrict__ code, long long n,
-                            float invalid, float max_diff, float lo,
-                            int n_bands) {
-  long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float v = disp[i];
-  if (v == invalid) {
-    code[i] = 255;
-    return;
-  }
+// the twin's band of a valid value: no reciprocal, no fused multiply-add
+__device__ __forceinline__ int band_of(float v, float lo, float max_diff,
+                                       int n_bands) {
   int band = (int)floorf((v - lo) / max_diff);
-  band = min(max(band, 0), n_bands - 1);
-  code[i] = (uint8_t)band;
+  return min(max(band, 0), n_bands - 1);
 }
 
-// grid (ceil(W/TW), ceil(H/TH), B), block (TW, TH)
-__global__ void vote_kernel(const float* __restrict__ disp,
-                            const uint8_t* __restrict__ code,
-                            float* __restrict__ out, int H, int W,
-                            float invalid, int radius, int min_region) {
-  extern __shared__ uint8_t tile[];
-  const int SW = TW + 2 * radius, SH = TH + 2 * radius;
-  const long long b = blockIdx.z;
-  const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
-  const uint8_t* img = code + b * H * (long long)W;
-  const int tid = threadIdx.y * TW + threadIdx.x;
-  for (int i = tid; i < SW * SH; i += TW * TH) {
-    int yy = y0 - radius + i / SW, xx = x0 - radius + i % SW;
-    tile[i] = (yy >= 0 && yy < H && xx >= 0 && xx < W)
-                  ? img[(long long)yy * W + xx]
-                  : (uint8_t)255;
+// grid (strips of T - 2r columns, segments of SEG rows, B), block T.
+// Shared memory, PLANES: uint32 ind[2][T], ring[2r+1][T]; else
+// uint8 hist[n_bands][T], codes[2r+1][T].
+template <bool PLANES>
+__global__ void speckle_kernel(const float* __restrict__ disp,
+                               float* __restrict__ out, int H, int W,
+                               float invalid, float max_diff, float lo,
+                               int n_bands, int radius, int min_region) {
+  extern __shared__ uint32_t ssm[];
+  const int T = blockDim.x, tid = threadIdx.x, R = 2 * radius + 1;
+  const int x = blockIdx.x * (T - 2 * radius) - radius + tid;
+  const int y0 = blockIdx.y * SEG, y1 = min(y0 + SEG, H);
+  const float* img = disp + (long long)blockIdx.z * H * W;
+  float* dst = out + (long long)blockIdx.z * H * W;
+  const bool in_x = x >= 0 && x < W;
+  // an output column has its whole window inside the block's columns
+  const bool votes = tid >= radius && tid < T - radius && x < W;
+
+  uint32_t* ind = ssm;            // [2][T] a row's packed indicators
+  uint32_t* ring = ssm + 2 * T;   // [R][T] horizontal counts, packed
+  uint8_t* hist = (uint8_t*)ssm;  // [n_bands][T] codes in the ring, by band
+  uint8_t* codes = hist + n_bands * T;  // [R][T]
+  if (!PLANES) {
+    for (int i = tid; i < n_bands * T; i += T) hist[i] = 0;
+    __syncthreads();
   }
-  __syncthreads();
-  const int x = x0 + threadIdx.x, y = y0 + threadIdx.y;
-  if (x >= W || y >= H) return;
-  const long long idx = (b * H + y) * (long long)W + x;
-  const int k = tile[(threadIdx.y + radius) * SW + threadIdx.x + radius];
-  const float v = disp[idx];
-  if (k == 255) {
-    out[idx] = invalid;
-    return;
-  }
-  int support = 0;
-  for (int r = 0; r <= 2 * radius; ++r) {
-    const uint8_t* trow = tile + (threadIdx.y + r) * SW + threadIdx.x;
-    for (int c = 0; c <= 2 * radius; ++c) {
-      int q = trow[c];
-      support += (q != 255) & (abs(q - k) <= 1);
+
+  uint32_t even = 0, odd = 0;  // vertical sums of planes 0, 2 and 1, 3
+  int slot = 0;                // ring row of the input row
+  const int y_in0 = y0 - radius, y_in1 = y1 + radius;
+  auto fetch = [&](int yy) {
+    return in_x && yy >= 0 && yy < min(H, y_in1) ? img[(long long)yy * W + x]
+                                                 : 0.0f;
+  };
+  float v_next = fetch(y_in0);
+  for (int yy = y_in0; yy < y_in1; ++yy) {
+    const float v = v_next;
+    v_next = fetch(yy + 1);      // a row ahead of its use
+    const int yo = yy - radius;  // the output row
+    const bool writes = votes && yo >= y0;
+    const float vo = writes ? img[(long long)yo * W + x] : invalid;
+    const bool valid = in_x && yy >= 0 && yy < H && v != invalid;
+    const int k = valid ? band_of(v, lo, max_diff, n_bands) : NO_BAND;
+    const bool full = yy - y_in0 >= R;  // a row leaves the window
+    int support = 0;
+    if (PLANES) {
+      // bytes k..3 set: the planes C_j, j >= k
+      uint32_t* row = ind + ((yy - y_in0) & 1) * T;
+      row[tid] = valid ? 0x01010101u << (8 * k) : 0u;
+      __syncthreads();
+      if (votes) {
+        uint32_t hs = 0;
+        for (int c = tid - radius; c <= tid + radius; ++c) hs += row[c];
+        uint32_t* mine = ring + slot * T + tid;
+        const uint32_t old = full ? *mine : 0u;
+        *mine = hs;
+        even += (hs & 0x00ff00ffu) - (old & 0x00ff00ffu);
+        odd += ((hs >> 8) & 0x00ff00ffu) - ((old >> 8) & 0x00ff00ffu);
+      }
+    } else {
+      uint8_t* mine = codes + slot * T + tid;
+      const int old = full ? *mine : NO_BAND;
+      *mine = (uint8_t)k;
+      if (old != NO_BAND) --hist[old * T + tid];
+      if (k != NO_BAND) ++hist[k * T + tid];
+      __syncthreads();
     }
+    if (writes) {
+      float res = invalid;
+      if (vo != invalid) {
+        const int ko = band_of(vo, lo, max_diff, n_bands);
+        if (PLANES) {
+          auto field = [&](int j) {
+            return (int)(((j & 1 ? odd : even) >> (16 * (j >> 1))) & 0xffffu);
+          };
+          support = field(min(ko + 1, n_bands - 1)) -
+                    (ko >= 2 ? field(ko - 2) : 0);
+        } else {
+          for (int j = max(ko - 1, 0); j <= min(ko + 1, n_bands - 1); ++j)
+            for (int c = tid - radius; c <= tid + radius; ++c)
+              support += hist[j * T + c];
+        }
+        if (support >= min_region) res = vo;
+      }
+      dst[(long long)yo * W + x] = res;
+    }
+    if (!PLANES) __syncthreads();  // the histogram is read before it moves
+    if (++slot == R) slot = 0;
   }
-  out[idx] = support >= min_region ? v : invalid;
 }
 
 }  // namespace
 
-// disp, out: (B, H, W) f32; code: (B, H, W) uint8 scratch.
-extern "C" int v3d_speckle(void* disp, void* out, void* code, int B, int H,
-                           int W, float invalid, float max_diff, float lo,
+// disp, out: (B, H, W) f32.
+extern "C" int v3d_speckle(void* disp, void* out, int B, int H, int W,
+                           float invalid, float max_diff, float lo,
                            int n_bands, int radius, int min_region,
                            void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (n_bands > 254) return (int)cudaErrorInvalidValue;
-  long long n = (long long)B * H * W;
-  band_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
-      (const float*)disp, (uint8_t*)code, n, invalid, max_diff, lo, n_bands);
-  cudaError_t e = cudaGetLastError();
+  // what the counters hold: a byte a row count, 16 bits a window count,
+  // NO_BAND the code of no band
+  if (n_bands < 1 || n_bands >= NO_BAND || radius < 0 || radius > 127)
+    return (int)cudaErrorInvalidValue;
+  // threads of a block: at least as many output columns as halo columns
+  int T = 128;
+  while (T - 2 * radius < T / 2) T *= 2;
+  const int R = 2 * radius + 1;
+  const bool planes = n_bands <= PLANE_BANDS;
+  const size_t smem = planes ? sizeof(uint32_t) * (size_t)(2 + R) * T
+                             : (size_t)(n_bands + R) * T;
+  auto kernel = planes ? speckle_kernel<true> : speckle_kernel<false>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  size_t smem = (size_t)(TW + 2 * radius) * (TH + 2 * radius);
-  e = cudaFuncSetAttribute(vote_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-  vote_kernel<<<grid, dim3(TW, TH), smem, s>>>(
-      (const float*)disp, (const uint8_t*)code, (float*)out, H, W, invalid,
-      radius, min_region);
+  const int ow = T - 2 * radius;
+  dim3 grid((W + ow - 1) / ow, (H + SEG - 1) / SEG, B);
+  kernel<<<grid, T, smem, s>>>((const float*)disp, (float*)out, H, W, invalid,
+                               max_diff, lo, n_bands, radius, min_region);
   return (int)cudaGetLastError();
 }

@@ -21,13 +21,18 @@ Every TPU kernel of the JAX package (each function reaching
  i16  (_cost_row_step_i16 :196)                               it computes in int16 at 2x scale,
                                                               bit-equal to that variant)
  B2   kernels/sgm.py:617 _directional_pass_dmajor             csrc/sgm.cu, kernels/sgm.py
-                                                              (int16 or f32 accumulator)
+                                                              (int16 or f32 accumulator;
+                                                              redesigned: both directions of a
+                                                              row in one launch, from its two
+                                                              ends, rows sharing a warp)
  B3   kernels/sgm.py:882 sgm_wta_pallas_dmajor                csrc/sgm.cu, kernels/sgm.py
                                                               (redesigned: every direction of a
                                                               sweep step in one cooperative
                                                               launch, the WTA in the closing
                                                               launch on the total in registers)
  B4   kernels/speckle.py:159 speckle_filter_pallas            csrc/speckle.cu, kernels/speckle.py
+                                                              (redesigned: one kernel, the
+                                                              window counted by running sums)
  B5   kernels/warp.py:91 warp_bilinear_shifts_pallas          csrc/warp.cu, kernels/warp.py
  B6   kernels/flowmatch.py:122 flow_match_pallas              csrc/flowmatch.cu, kernels/flowmatch.py
  B7a  kernels/attention.py:84 attention_multihead             csrc/attention.cu, kernels/attention.py
@@ -38,8 +43,8 @@ Every TPU kernel of the JAX package (each function reaching
                                                               bf16 on wgmma with TMA-fed K/V
                                                               tiles, f32 on the CUDA cores; one
                                                               launch count)
- B8a  kernels/sgm.py:119 _directional_pass                    csrc/sgm.cu (the sweep template at
-      (via sgm_aggregate_pallas :148)                         f32/bf16 cost), kernels/sgm.py
+ B8a  kernels/sgm.py:119 _directional_pass                    csrc/sgm.cu (sweep_kernel, f32 or
+      (via sgm_aggregate_pallas :148)                         bf16 cost), kernels/sgm.py
                                                               sgm_aggregate_pallas
  B8b  kernels/sgm.py:254,279 transpose_to/from_wmajor         csrc/wmajor.cu, kernels/wmajor.py
  B8c  kernels/sgm.py:391 _directional_pass_wmajor             csrc/wmajor.cu, kernels/wmajor.py

@@ -45,6 +45,7 @@ _SIGNATURES = {
     # sgm.cu
     "v3d_sgm_sweep": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I,
                       _P],
+    "v3d_sgm_horizontal": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     "v3d_sgm_vertical": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          _I, _I, _I, _I, _I, _I, _P, _P],
     "v3d_sgm_vertical_scratch": [_I, _I],
@@ -57,7 +58,7 @@ _SIGNATURES = {
     # probe_i16.cu
     "v3d_probe_i16": [_I, _P, _P, _P, _P, _I, _I, _P],
     # speckle.cu
-    "v3d_speckle": [_P, _P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _I, _P],
+    "v3d_speckle": [_P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _I, _P],
     # warp.cu
     "v3d_warp": [_P, _P, _P, _P, _I, _I, _I, _P],
     # flowmatch.cu

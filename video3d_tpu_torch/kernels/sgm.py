@@ -1,7 +1,8 @@
 """Kernel B2, B3 and B8a wrappers: SGM sweeps and winner-take-all.
 
-CUDA source: ``video3d_tpu_torch/csrc/sgm.cu``: one sweep kernel templated
-on the cost, accumulator and compute types (B2, B8a), and one vertical
+CUDA source: ``video3d_tpu_torch/csrc/sgm.cu``: one horizontal kernel that
+runs a row's two directions from its two ends in a single launch (B2), one
+sweep kernel for a single direction of a float cost (B8a), and one vertical
 kernel that runs every direction of one sweep step ``dy`` in a single
 launch and, in the launch that closes the mode, the WTA on the total it
 holds in registers (B3), with a small LR-check kernel after it. B2
@@ -38,6 +39,9 @@ aggregate_launches = 0  # B8a: calls that launched the CUDA float sweeps
 # B3's last 3-direction launch: (blocks per multiprocessor, multiprocessors,
 # strips per frame, frames per chunk, chunks, columns per block), or None
 vertical_plan = None
+# B2's last launch: (blocks per multiprocessor, multiprocessors, blocks
+# launched, rounds of row groups a warp takes), or None
+horizontal_plan = None
 
 # dtype codes of the C interface
 _CODE = {torch.int16: 0, torch.float32: 1, torch.bfloat16: 2}
@@ -82,8 +86,9 @@ def _sweep(lib, cost, acc_in, acc_out, dy, dx, p1, p2, stream) -> None:
 
 def horizontal_sweeps(cost: torch.Tensor, params: SGBMParams) -> torch.Tensor:
     """B2: (B, H, W, D) int16 cost -> sum of both horizontal paths, int16 or
-    f32 by :func:`acc_dtype_for_params`."""
-    global sweep_launches
+    f32 by :func:`acc_dtype_for_params`. On the card both directions run in
+    one launch."""
+    global sweep_launches, horizontal_plan
     if not cost.is_cuda:
         return horizontal_sweeps_plain(cost, params)
     _check_volume(cost, params)
@@ -93,8 +98,12 @@ def horizontal_sweeps(cost: torch.Tensor, params: SGBMParams) -> torch.Tensor:
     acc = torch.empty(cost.shape, dtype=acc_dtype_for_params(cost.dtype,
                                                               params),
                       device=cost.device)
-    _sweep(lib, cost, None, acc, 0, 1, p1, p2, stream)
-    _sweep(lib, cost, acc, acc, 0, -1, p1, p2, stream)
+    b, h, w, d = cost.shape
+    plan = (ctypes.c_int * 4)()
+    _build.check(lib.v3d_sgm_horizontal(
+        cost.data_ptr(), acc.data_ptr(), b, h, w, d, p1, p2,
+        _CODE[acc.dtype], plan, stream), "v3d_sgm_horizontal")
+    horizontal_plan = tuple(plan)
     sweep_launches += 1
     return acc
 

@@ -1,7 +1,9 @@
 """Kernel B4 wrapper: banded-window speckle vote.
 
-CUDA source: ``video3d_tpu_torch/csrc/speckle.cu``. Replaces the TPU
-kernel ``video3d_tpu/kernels/speckle.py speckle_filter_pallas``; the plain
+CUDA source: ``video3d_tpu_torch/csrc/speckle.cu``: one kernel that walks
+strips of columns down the rows and counts the window with running sums
+(packed cumulative band planes for up to four bands, a per-column band
+histogram above that). Replaces the TPU kernel ``video3d_tpu/kernels/speckle.py speckle_filter_pallas``; the plain
 twin is :func:`video3d_tpu_torch.ops.speckle.speckle_filter_device`.
 """
 
@@ -34,10 +36,9 @@ def speckle_filter(disp: torch.Tensor, invalid: float, max_diff: float,
                                              value_range)
     b, h, w = disp.shape
     out = torch.empty_like(disp)
-    code = torch.empty((b, h, w), dtype=torch.uint8, device=disp.device)
     lib = _build.lib()
     _build.check(lib.v3d_speckle(
-        disp.data_ptr(), out.data_ptr(), code.data_ptr(), b, h, w,
+        disp.data_ptr(), out.data_ptr(), b, h, w,
         float(invalid), float(max_diff), lo_v, n_bands, radius,
         int(min_region), _build.stream_of(disp)), "v3d_speckle")
     launches += 1

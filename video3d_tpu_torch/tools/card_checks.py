@@ -1,4 +1,4 @@
-"""Small-shape checks of kernels B1 and B3 against their plain twins.
+"""Small-shape checks of kernels B1-B4 against their plain twins.
 
 The shapes stress what the 1080p run at D = 64 does not: widths that are
 no multiple of a block's strip of columns, heights shorter than B1's ring
@@ -6,7 +6,11 @@ of rows and no multiple of one of its segments, disparity counts from one
 lane-run to four (and ones no vector width divides), a non-zero
 ``min_disparity``, other block sizes, batches of 1 and 3 (and of enough
 small frames that B3 picks its wider blocks), and for B3 every mode (2, 4,
-5 and 8 paths) with and without the margin. ``chip_smoke.py``
+5 and 8 paths) with and without the margin. B2 runs B3's shapes (and
+widths below and around twice its ring of pixels) with the int16 and the
+f32 accumulator; B4 widths and heights off its strip and segment sizes and
+below its window, 2 to 9 bands and one band a disparity (both counting
+schemes), ``min_region`` from 1 to 400. ``chip_smoke.py``
 and ``tests/test_torch_card.py`` both run them on the card; the functions
 raise ``AssertionError`` on a mismatch.
 """
@@ -16,7 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from video3d_tpu_torch.kernels import costvol, sgm
+from video3d_tpu_torch.kernels import costvol, sgm, speckle
+from video3d_tpu_torch.ops.speckle import speckle_filter_device
 from video3d_tpu_torch.ops.stereo import SGBMParams
 
 # (batch, height, width, num_disparities, min_disparity, block_size)
@@ -54,6 +59,39 @@ B3_SHAPES = [
 ]
 B3_CASES = [shape + (paths, margin) for shape in B3_SHAPES
             for paths in (2, 4, 5, 8) for margin in (False, True)]
+
+# (batch, height, width, num_disparities, num_paths): B3's shapes, then
+# widths of 1, 2, below and around twice the ring of pixels in flight, and
+# enough rows that a warp takes more than one group of them
+B2_SHAPES = [shape[:4] for shape in B3_SHAPES] + [
+    (1, 3, 1, 16), (2, 3, 2, 64), (1, 5, 7, 64), (1, 5, 16, 35),
+    (3, 5, 17, 128), (1, 5, 24, 70), (1, 5, 33, 64), (40, 540, 70, 16),
+    (12, 1080, 40, 64),
+]
+B2_CASES = [shape + (paths,) for shape in B2_SHAPES for paths in (5, 8)]
+
+# (batch, height, width, min_region, max_diff, fill): a strip has 108
+# output columns at radius 10 and a segment 64 rows
+B4_CASES = [
+    (2, 40, 200, 100, 32.0, "random"),
+    (1, 137, 257, 9, 32.0, "random"),
+    (3, 64, 108, 100, 32.0, "random"),
+    (1, 65, 109, 100, 32.0, "random"),
+    (1, 129, 217, 100, 64.0, "random"),   # 2 bands
+    (1, 9, 40, 100, 32.0, "random"),      # shorter than the radius
+    (3, 24, 17, 100, 32.0, "random"),     # narrower than the window
+    (1, 24, 30, 400, 32.0, "random"),     # radius 20
+    (1, 70, 130, 1, 32.0, "random"),      # radius 2
+    (1, 137, 257, 9, 16.0, "random"),     # 5 bands: the histogram scheme
+    (3, 70, 300, 100, 8.0, "random"),     # 9 bands
+    (1, 70, 130, 400, 8.0, "random"),
+    (1, 70, 130, 1, 8.0, "random"),
+    (1, 137, 257, 100, 1.0, "random"),    # a band a disparity
+    (1, 70, 130, 100, 32.0, "valid"),
+    (1, 70, 130, 100, 32.0, "invalid"),
+    (1, 70, 130, 9, 8.0, "valid"),
+    (1, 70, 130, 9, 8.0, "invalid"),
+]
 
 
 def gray_pair(b: int, h: int, w: int, shift: int, seed: int, device):
@@ -104,3 +142,51 @@ def check_b3(device, b, h, w, d, min_d, paths, margin, seed=8) -> None:
         f"{what}: validity differs"
     err = (got - want).abs().max().item()
     assert err <= 1e-5, f"{what}: max |err| {err}"
+
+
+def check_b2(device, b, h, w, d, paths, seed=9) -> None:
+    """B2 on the card, one launch, equals its twin bit for bit on a random
+    cost of B1's range, in the accumulator type of ``paths``."""
+    p = SGBMParams(num_disparities=d, num_paths=paths)
+    r = np.random.default_rng(seed)
+    cost = torch.from_numpy(r.integers(0, 1551, (b, h, w, d)).astype(
+        np.int16)).to(device)
+    n = sgm.sweep_launches
+    acc = sgm.horizontal_sweeps(cost, p)
+    assert sgm.sweep_launches == n + 1
+    want = sgm.horizontal_sweeps_plain(cost, p)
+    torch.cuda.synchronize(device)
+    what = f"B2 at {(b, h, w, d)}, {paths} paths"
+    assert acc.dtype == (torch.float32 if paths == 8 else torch.int16), what
+    assert acc.shape == cost.shape, what
+    err = (acc.double() - want.double()).abs().max().item()
+    assert err == 0, f"{what}: max |err| {err}"
+
+
+def speckle_map(b: int, h: int, w: int, fill: str, seed: int, device):
+    """(b, h, w) f32 disparities in [0, 64), the left half in flat blobs,
+    ``fill`` of "random" (30% invalid), "valid" or "invalid" (-1)."""
+    r = np.random.default_rng(seed)
+    disp = r.uniform(0, 64, (b, h, w)).astype(np.float32)
+    disp[:, :, : w // 2] = np.floor(disp[:, :, : w // 2] / 24) * 24
+    if fill == "random":
+        disp[r.uniform(size=disp.shape) < 0.3] = -1.0
+    elif fill == "invalid":
+        disp[:] = -1.0
+    return torch.from_numpy(disp).to(device)
+
+
+def check_b4(device, b, h, w, min_region, max_diff, fill, seed=10) -> None:
+    """B4 on the card equals its twin bit for bit."""
+    disp = speckle_map(b, h, w, fill, seed, device)
+    n = speckle.launches
+    got = speckle.speckle_filter(disp, -1.0, max_diff, min_region,
+                                 (0.0, 64.0))
+    assert speckle.launches == n + 1
+    want = speckle_filter_device(disp, -1.0, max_diff, min_region,
+                                 (0.0, 64.0))
+    torch.cuda.synchronize(device)
+    what = (f"B4 at {(b, h, w)} min_region {min_region} max_diff {max_diff} "
+            f"{fill}")
+    assert torch.equal(got, want), \
+        f"{what}: {int((got != want).sum().item())} pixels differ"
