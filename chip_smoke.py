@@ -21,19 +21,26 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    B8b round trip (equal to the input and to ``permute().contiguous()``)
    at the same shape; the six int16 probe ops (P); B5 flow warp at
    1080x1920 with r = 16 and at 270x480 with r = 6, B6 flow match at
-   270x480; B7a/B7b attention at DPT-large's (2, 16, 577, 64) in bf16 and
+   270x480; the fused forms the flow path runs: B6's level step (upsample,
+   clamp, warp and match in one launch) at 270x480 from a 135x240 flow and
+   B5's EMA step at 1080x1920 from a 270x480 guide with the depth gate on,
+   each also along the small shapes of ``card_checks`` (level steps of
+   whole pyramids, EMA steps at guides from 5x7 to 540x960) and run twice
+   for the same bits; B7a/B7b attention at DPT-large's (2, 16, 577, 64) in bf16 and
    f32, at the K=1 hybrid's (8, 16, 577, 64) and at two other sequence
    lengths. B1, B2, B4, B8a, B8b, B8c and P
    must be bit-exact; B3 must have identical validity and disparity within
-   1e-5 (margin within rtol 1e-6); B5 within 1e-5, B6 within 2e-4 px; B7
+   1e-5 (margin within rtol 1e-6); B5 within 1e-5 (its EMA step within
+   1e-4 on unit-scale depth), B6 within 2e-4 px (its level step too); B7
    within 1e-5 in f32 and, in bf16, within 2^-7 |twin| + 2^-10 (about one
    bf16 ulp) on >= 99.9% of the outputs. Each kernel's time (CUDA events)
    is printed beside its twin's, its bound (the larger of the bytes it
    must move over 3.35 TB/s and its operations over the unit's peak) and,
    where one PyTorch call computes the same function, that call's time
-   (SDPA for B7, ``permute().contiguous()`` for B8b); for B7 and SDPA also
-   the device time per call from a ``torch.profiler`` trace, since their
-   back-to-back event times include each call's host cost;
+   (SDPA for B7, ``permute().contiguous()`` for B8b); for B7 and SDPA, and
+   B5's and B6's fused forms, also the device time per call from a
+   ``torch.profiler`` trace, since their back-to-back event times include
+   each call's host cost;
 4. drives each path through the entry points a user calls, with every
    launch count set to 0 just before and read just after, and fails if a
    kernel of the path never ran: the stereo-only depth stage
@@ -43,7 +50,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    one batch's maps against the plain path); the same stage with the
    flow-guided temporal smoother over a panning clip (B1-B6, the
    pass-through of frame 0, the flow of the pan, batch 0 against the
-   twins); the DPT hybrid (DPT-large at full width and depth with random
+   twins; B5's and B6's launches per smoothed frame); the DPT hybrid (DPT-large at full width and depth with random
    bf16 weights from seed 0, keyframes every 4th frame, hole fill, SSI
    alignment, confidence-trust blend; 24 B7 launches per batch, the fill,
    finite values, the median, batch 0 against the all-twin path); MODE_HH
@@ -54,7 +61,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``sgm_aggregate_pallas``; and the int16 probe's own run;
 5. times the stage's frames/s with and without the flow smoother, with
    DPT guidance at K=4 and K=1, in MODE_HH and on each route, the DPT-large
-   forward per keyframe, and the smoother alone per frame.
+   forward per keyframe, and the smoother alone per frame, with its
+   device operations per frame counted in a ``torch.profiler`` trace.
 
 The second-to-last line is a JSON object of the kernels, preceded by the
 card's name and power limit; the last line is
@@ -92,6 +100,21 @@ WTA_OPS = 8  # per element: the two minima, the right-image min, compares
 # the defaults) one add and one subtract each for the horizontal and the
 # vertical window, the difference of two planes and the compare
 SPECKLE_OPS = 5 + 3 * 4 + 2
+# B6's level step per pixel, counted whatever implements it: the incoming
+# flow's upsample (2 x 7) and clamp (2 x 2); the warp (2 passes: floor, two
+# hats of 3, two products and a sum); per candidate (25) the difference,
+# its magnitude, a running add and subtract each way and the area scale,
+# then the minimum, the exponent's difference and scale, the exp and three
+# products-and-sums of the softargmin; the radius-2 smoothing of the two
+# residuals (running sums, 4 each), its division and the add
+LEVEL_OPS = 2 * 7 + 2 * 2 + 2 * 10 + 25 * (7 + 1 + 3 + 6) + 2 * (4 + 2)
+# B5's EMA step per full-resolution pixel: three upsamples (flow y, x and
+# alpha, 7 each), the warp (20), |depth - warp| (2), the radius-2 box
+# (running sums, 4) and its division, the gate (6) and the blend (4); per
+# guide pixel: the warp (20), |g - warp| (2), the box (4) and its
+# division, alpha (4)
+EMA_OPS = 3 * 7 + 20 + 2 + 4 + 1 + 6 + 4
+GUIDE_OPS = 20 + 2 + 4 + 1 + 4
 
 
 def card_line() -> str:
@@ -221,9 +244,12 @@ def main() -> int:
     from video3d_tpu_torch.models.dpt import random_dpt_guidance
     from video3d_tpu_torch.ops.attention import attention_plain
     from video3d_tpu_torch.ops.fill import fill_holes
-    from video3d_tpu_torch.ops.flow import (FlowEMAParams, estimate_flow_fast,
-                                            flow_ema_scan, flow_match_plain,
+    from video3d_tpu_torch.ops.flow import (FlowEMAParams, ema_tail_plain,
+                                            estimate_flow_fast,
+                                            flow_ema_scan, flow_level_plain,
+                                            flow_match_plain,
                                             warp_bilinear_shifts_plain)
+    from video3d_tpu_torch.ops.flow import shift_edge as flow_shift
     from video3d_tpu_torch.ops.image import resize2d, rgb_to_gray
     from video3d_tpu_torch.ops.speckle import speckle_filter_device
     from video3d_tpu_torch.ops.stereo import (INVALID, SGBMParams,
@@ -643,7 +669,9 @@ def main() -> int:
             # image and two flow planes in, one plane out; two taps a pass
             work=(4 * H * W_SBS * 4, 20 * H * W_SBS))
 
-    # B6 at the finest flow level at flow_scale 4
+    # B6 at the finest flow level at flow_scale 4: the public match of an
+    # already warped frame, and the level step with the warp inside, its
+    # incoming flow at the coarser level's 135x240
     shape = (270, 480)
     cur, prev_w = plane(0, 255, shape), plane(0, 255, shape)
     fy, fx = plane(-3, 3, shape), plane(-3, 3, shape)
@@ -663,7 +691,84 @@ def main() -> int:
             # four planes in, two out; 25 candidates of separable 7x7 SADs
             # and the softargmin update
             work=(6 * n6 * 4, 25 * (2 * 7 + 6) * n6))
-    del img, fy, fx, got, want, cur, prev_w
+    prev = card_checks.smooth_plane(*shape, SEED + 3, dev)
+    cur = flow_shift(prev, 1, -2).contiguous()
+    cshape = (135, 240)
+    fy, fx = plane(-3, 3, cshape), plane(-3, 3, cshape)
+    r6 = 6  # ceil(4 / 1) + 2: the finest level at flow_scale 4
+
+    def b6_level():
+        return flowmatch.flow_level(cur, prev, fy, fx, 2, 3, 2.0, r6)
+
+    def b6_level_plain():
+        return flow_level_plain(cur, prev, fy, fx, 2, 3, 2.0, r6)
+
+    got, want = b6_level(), b6_level_plain()
+    torch.cuda.synchronize()
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    check(err <= 2e-4, f"B6 level step differs from twin: {err}")
+    check(all(torch.equal(g, a) for g, a in zip(got, b6_level())),
+          "B6 level step: two runs differ")
+    ms6, dev6 = cuda_ms(b6_level, 20), device_ms(b6_level, 20)
+    add_row("B6-level", at="ms/call at 270x480 from a 135x240 flow, r 6",
+            name="B6 flow_level (level step, warp inside)",
+            source="video3d_tpu_torch/csrc/flowmatch.cu",
+            replaces="video3d_tpu/kernels/flowmatch.py:122", max_abs_err=err,
+            ms=ms6, plain_ms=cuda_ms(b6_level_plain, 3),
+            # cur, prev and two coarse flow planes in, two flow planes out;
+            # LEVEL_OPS a pixel whatever implements them
+            work=((4 * n6 + 2 * cshape[0] * cshape[1]) * 4, LEVEL_OPS * n6))
+    print(f"B6 level step 270x480: max |err| {err} px; {ms6:.4f} ms/call "
+          f"(CUDA events), device time (torch.profiler) "
+          + (f"{dev6:.4f}" if dev6 else "not measured") + f" on {card}")
+
+    # B5's EMA step after the flow, at 1080p from the 270x480 guide with
+    # the depth gate on: unit-scale depth, as card_checks.check_ema_tail
+    ema_p = FlowEMAParams()
+    rq = max(1, int(round(ema_p.max_warp / 4)))
+    depth_f = card_checks.smooth_plane(H, W_SBS, SEED + 4, dev, 1.0)
+    prev_f = (flow_shift(depth_f, 2, -3) + 0.05 * torch.from_numpy(
+        rng.standard_normal((H, W_SBS)).astype(np.float32)).to(dev)
+              ).contiguous()
+    g_q = card_checks.smooth_plane(*shape, SEED + 5, dev)
+    pg_q = flow_shift(g_q, 0, 1).contiguous()
+    fy, fx = plane(-rq - 1, rq + 1, shape), plane(-rq - 1, rq + 1, shape)
+    ema_in = (ema_p, depth_f, prev_f, g_q, pg_q, fy, fx, rq)
+    got = warp.ema_tail(*ema_in)
+    want = ema_tail_plain(*ema_in)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    check(err <= 1e-4, f"B5 EMA step differs from twin: {err}")
+    check(torch.equal(got, warp.ema_tail(*ema_in)),
+          "B5 EMA step: two runs differ")
+    ms5 = cuda_ms(lambda: warp.ema_tail(*ema_in), 20)
+    dev5 = device_ms(lambda: warp.ema_tail(*ema_in), 20)
+    nf, nq = H * W_SBS, shape[0] * shape[1]
+    add_row("B5-ema", at="ms/call at 1080x1920 from a 270x480 guide, gate on",
+            name="B5 ema_tail (EMA step, 3 launches)",
+            source="video3d_tpu_torch/csrc/warp.cu",
+            replaces="video3d_tpu/kernels/warp.py:91", max_abs_err=err,
+            ms=ms5, plain_ms=cuda_ms(lambda: ema_tail_plain(*ema_in), 3),
+            # depth and prev_out in, the frame out; g, prev_g and the flow
+            # in at guide scale; EMA_OPS a full-resolution pixel and
+            # GUIDE_OPS a guide pixel whatever implements them
+            work=((3 * nf + 4 * nq) * 4, EMA_OPS * nf + GUIDE_OPS * nq))
+    print(f"B5 EMA step 1080x1920: max |err| {err}; {ms5:.4f} ms/call "
+          f"(CUDA events), device time (torch.profiler) "
+          + (f"{dev5:.4f}" if dev5 else "not measured") + f" on {card}")
+    del img, fy, fx, got, want, cur, prev_w, prev, depth_f, prev_f, ema_in
+
+    # B5 and B6 at the small shapes of card_checks: the level step along
+    # whole pyramids, the EMA step at guides from 5x7 to 540x960
+    for case in card_checks.FLOW_LEVEL_CASES:
+        card_checks.check_flow_level(dev, *case)
+    for case in card_checks.EMA_CASES:
+        card_checks.check_ema_tail(dev, *case)
+    print(f"B6's level step holds its gate at {len(card_checks.FLOW_LEVEL_CASES)}"
+          f" pyramids (5x7 to 540x960, 3 and 4 levels, r_lvl 3-9); B5's EMA "
+          f"step at {len(card_checks.EMA_CASES)} shapes (gate on and off); "
+          f"both give the same bits on a second run")
+    torch.cuda.empty_cache()
 
     # B7a (attention_multihead) and B7b (attention_oneblock), one launch,
     # at DPT-large's attention shape (two keyframes, 16 heads, 577 tokens,
@@ -856,7 +961,13 @@ def main() -> int:
               f"{flow_s:.3f} s "
               f"incl. first-batch warm-up and PNG writes; launches B1..B6 = "
               f"{flaunches}")
-        rows["B5"]["launches"], rows["B6"]["launches"] = flaunches[4:6]
+        # one counter per source: the path launches only the fused forms
+        rows["B5"]["launches"] = rows["B5-ema"]["launches"] = flaunches[4]
+        rows["B6"]["launches"] = rows["B6-level"]["launches"] = flaunches[5]
+        n_smoothed = n_flow - 1  # frame 0 passes through
+        print(f"flow path: B5 {flaunches[4] / n_smoothed:.2f} and B6 "
+              f"{flaunches[5] / n_smoothed:.2f} launches per smoothed frame "
+              f"({n_smoothed} frames)")
         check(n_flow == 2 * fbatch, f"wrote {n_flow} frames")
         fmaps = read_maps(fcache, n_flow)
         check_disparity(fmaps, "flow path")
@@ -1151,6 +1262,25 @@ def main() -> int:
         print(f"smoother alone: {ms_s:.3f} ms/frame CUDA events, "
               f"{host_ms:.3f} ms/frame host clock (T=8, 1080p depth, "
               f"270x480 guide) = {1000.0 / ms_s:.2f} frames/s on {card}")
+        # the smoother's launches per frame, counted in a profiler trace
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            flow_ema_scan(None, sd, sg, FlowEMAParams())
+            torch.cuda.synchronize()
+        per_kernel = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                per_kernel[e.name] = per_kernel.get(e.name, 0) + 1
+        n_dev = sum(per_kernel.values())
+        print(f"smoother launches (torch.profiler): {n_dev} device operations "
+              f"for 8 frames = {n_dev / 8:.2f} per frame on {card}")
+        for name, k in sorted(per_kernel.items(), key=lambda kv: -kv[1]):
+            print(f"  {k / 8:6.2f} per frame  {name[:100]}")
+        check(0 < n_dev <= 20 * 8,
+              f"the smoother ran {n_dev / 8:.2f} device operations a frame, "
+              f"more than 20")
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -9,10 +9,12 @@ Every test is marked ``cuda`` and skips where ``torch.cuda.is_available()``
 is false. B1-B4 run the small-shape lists of
 ``video3d_tpu_torch/tools/card_checks.py`` (ragged widths, short heights,
 D from 16 to 128, ``min_disparity`` 3, every SGM mode, both accumulator
-types, 2 bands to one a disparity); the other kernels
+types, 2 bands to one a disparity), B6's level step and B5's EMA step
+their lists there (guides 5x7 to 540x960); the other kernels
 run at the shapes of the ``cuda`` tests beside their CPU tests. Gates are
 the smoke's: B1, B2, B4, B8a-c and P bit-exact; B3 identical validity,
-disparity within 1e-5, margin within rtol 1e-6; B5 1e-5; B6 2e-4 px; B7
+disparity within 1e-5, margin within rtol 1e-6; B5 1e-5 (its EMA step
+1e-4 on unit-scale depth); B6 2e-4 px, its level step too; B7
 1e-5 in f32 and one bf16 ulp on >= 99.9% of the outputs.
 """
 
@@ -98,6 +100,16 @@ def test_b6_matches_twin(dev, shape):
     want = tflow.flow_match_plain(*args, search=2, radius=3, tau=2.0)
     for g, w in zip(got, want):
         assert (g - w).abs().max().item() <= 2e-4
+
+
+@pytest.mark.parametrize("case", card_checks.FLOW_LEVEL_CASES, ids=str)
+def test_b6_level_matches_twin(dev, case):
+    card_checks.check_flow_level(dev, *case)
+
+
+@pytest.mark.parametrize("case", card_checks.EMA_CASES, ids=str)
+def test_b5_ema_tail_matches_twin(dev, case):
+    card_checks.check_ema_tail(dev, *case)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

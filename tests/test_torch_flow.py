@@ -5,8 +5,10 @@ kernels run in interpret mode on CPU, as tests/test_flow.py runs them.
 Tolerances: B5 atol 1e-5 (the JAX package's own Pallas-vs-XLA bound for
 the warp); B6 and one refinement level atol 2e-4 px (its bound for the
 matcher, whose sums run in another order); the estimators 1e-3 px; the
-resamplers 1e-3 on a 0-255 scale (matmul summation order). The CUDA
-kernels are held against their twins on the card (marked ``cuda``).
+resamplers 1e-3 on a 0-255 scale (matmul summation order); one EMA step
+0.05 on a 1000-scale depth, as the scan. The kernels' tap tables rebuild
+the bilinear matrix bit for bit. The CUDA kernels are held against their
+twins on the card (marked ``cuda``).
 """
 
 import jax.numpy as jnp
@@ -22,6 +24,7 @@ from video3d_tpu.ops import image as jimage
 from video3d_tpu_torch.kernels import flowmatch, warp
 from video3d_tpu_torch.ops import flow as tflow
 from video3d_tpu_torch.ops import image as timage
+from video3d_tpu_torch.tools import card_checks
 
 T = torch.from_numpy
 
@@ -171,6 +174,88 @@ def test_flow_ema_scan_matches_jax():
     assert err.max() < 0.05, err.max()
 
 
+@pytest.mark.parametrize("shape,incoming", [
+    ((37, 53), "coarse"),   # from (19, 27): odd coarse sizes, ratio != 2
+    ((48, 64), "coarse"),
+    ((27, 41), "coarse"),   # from (14, 21)
+    ((37, 53), "same"),     # the coarsest level's second step
+    ((37, 53), "none"),     # the first step
+])
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_flow_level_twin_matches_jax(shape, incoming, use_pallas):
+    cur, prev, _, _ = _match_inputs(shape, seed=9)
+    h, w = shape
+    rng = np.random.default_rng(10)
+    fshape = {"coarse": (-(-h // 2), -(-w // 2)), "same": shape,
+              "none": shape}[incoming]
+    fy = rng.uniform(-4, 4, fshape).astype(np.float32)
+    fx = rng.uniform(-4, 4, fshape).astype(np.float32)
+    if incoming == "none":
+        fy[:] = fx[:] = 0.0
+    got = tflow.flow_level(T(cur), T(prev),
+                           None if incoming == "none" else T(fy),
+                           None if incoming == "none" else T(fx),
+                           search=2, radius=3, tau=2.0, r=5)
+    jfy, jfx = _j(fy, fx)
+    if incoming == "coarse":
+        jfy = jflow._resize_bl(jfy, h, w) * (h / fshape[0])
+        jfx = jflow._resize_bl(jfx, h, w) * (w / fshape[1])
+    want = jflow._flow_level_fast(*_j(cur, prev), jfy, jfx, search=2,
+                                  radius=3, tau=2.0, warp_r=5,
+                                  use_pallas=use_pallas, interpret=True)
+    for g, wv in zip(got, want):
+        assert g.shape == shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(wv), atol=2e-4)
+
+
+@pytest.mark.parametrize("max_warp", [8, 16])
+@pytest.mark.parametrize("gain", [0.0, 1.0])
+def test_ema_step_matches_jax(max_warp, gain):
+    """One frame of a scene panning 4 px (1 px at the 1/4 guide), the carry
+    a noisy copy of the last frame."""
+    rng = np.random.default_rng(12)
+    h, w, s = 64, 96, 4
+    big_d = smooth_texture(rng, h, w + 4, scale=1000.0)
+    big_g = smooth_texture(rng, h // s, w // s + 1)
+    prev_out = (big_d[:, :w] + rng.normal(0, 5, (h, w))).astype(np.float32)
+    depth = big_d[:, 4:].copy()
+    prev_g, g = big_g[:, :-1].copy(), big_g[:, 1:].copy()
+    tp = tflow.FlowEMAParams(max_warp=max_warp, d_gate_gain=gain)
+    jp = jflow.FlowEMAParams(max_warp=max_warp, d_gate_gain=gain)
+    (carry, _), got = tflow._ema_step(tp, (T(prev_out), T(prev_g)), T(depth),
+                                      T(g))
+    (_, _), want = jflow._ema_step(jp, _j(prev_out, prev_g), _j(depth, g))
+    assert carry is got
+    err = np.abs(got.numpy() - np.asarray(want))
+    assert err.max() < 0.05, err.max()
+    # written in place when asked, the same values
+    out = torch.empty((h, w))
+    _, again = tflow._ema_step(tp, (T(prev_out), T(prev_g)), T(depth), T(g),
+                               out)
+    assert again is out and torch.equal(out, got)
+
+
+# the level sizes of flow_scale 4 and 2 on a 1080p film (270x480 and
+# 540x960 guides at 3 levels), the full-resolution upsample, identity
+@pytest.mark.parametrize("n_in,n_out", [
+    (68, 135), (135, 270), (120, 240), (240, 480), (270, 540), (480, 960),
+    (270, 1080), (480, 1920), (540, 1080), (960, 1920), (2, 2), (37, 37),
+    (1, 5),
+])
+def test_bilinear_taps_rebuild_the_matrix(n_in, n_out):
+    idx, w = timage.bilinear_taps(n_in, n_out)
+    assert idx.dtype == np.int32 and w.dtype == np.float32
+    assert idx.shape == w.shape == (n_out, 2)
+    assert (idx[:, 0] <= idx[:, 1]).all()
+    dense = np.zeros((n_in, n_out), dtype=np.float32)
+    for k in range(2):
+        np.add.at(dense, (idx[:, k], np.arange(n_out)), w[:, k])
+    want = timage.resample_matrix(n_in, n_out, "bilinear")
+    assert dense.tobytes() == want.tobytes()
+    np.testing.assert_array_equal(
+        want, np.asarray(jimage.resample_matrix(n_in, n_out, "bilinear")))
+
+
 # ---------------------------------------------------------------------------
 # On the card: B5 and B6 against their plain twins
 # ---------------------------------------------------------------------------
@@ -205,3 +290,15 @@ def test_cuda_b6_matches_twin(cuda_device, shape):
     assert flowmatch.launches == launches + 1
     for g, w in zip(got, want):
         assert (g - w).abs().max().item() <= 2e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", card_checks.FLOW_LEVEL_CASES[:4], ids=str)
+def test_cuda_flow_level_matches_twin(cuda_device, case):
+    card_checks.check_flow_level(cuda_device, *case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", card_checks.EMA_CASES[:5], ids=str)
+def test_cuda_ema_tail_matches_twin(cuda_device, case):
+    card_checks.check_ema_tail(cuda_device, *case)

@@ -2,7 +2,9 @@
 
 Each wrapper module holds a plain integer launch count and sends a CUDA
 tensor to its kernel (or raises) and a CPU tensor to its plain PyTorch
-twin; nothing else chooses between them. ``_build`` compiles
+twin; nothing else chooses between them. (The flow smoother's fused
+entries take CUDA tensors only: ``ops/flow.py flow_level`` and
+``ema_tail`` choose between them and their twins.) ``_build`` compiles
 ``video3d_tpu_torch/csrc/*.cu`` with nvcc into ``build/kernels/`` and loads
 the library with ctypes. ``sgm_aggregate_pallas`` (B8a) is exported here,
 as the JAX package exports its kernel of that name.
@@ -34,7 +36,14 @@ Every TPU kernel of the JAX package (each function reaching
                                                               (redesigned: one kernel, the
                                                               window counted by running sums)
  B5   kernels/warp.py:91 warp_bilinear_shifts_pallas          csrc/warp.cu, kernels/warp.py
+                                                              (redesigned: also the smoother's
+                                                              full-resolution EMA step, the flow
+                                                              upsampled inside, in two or three
+                                                              launches)
  B6   kernels/flowmatch.py:122 flow_match_pallas              csrc/flowmatch.cu, kernels/flowmatch.py
+                                                              (redesigned: one launch per level
+                                                              step, the upsample and the warp
+                                                              inside)
  B7a  kernels/attention.py:84 attention_multihead             csrc/attention.cu, kernels/attention.py
  B7b  kernels/attention.py:116 attention_oneblock             csrc/attention.cu, kernels/attention.py
                                                               (redesigned: one kernel and one

@@ -61,8 +61,13 @@ _SIGNATURES = {
     "v3d_speckle": [_P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _I, _P],
     # warp.cu
     "v3d_warp": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "v3d_ema_guide": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P],
+    "v3d_ema_step": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P,
+                     _F, _F, _I, _I, _I, _F, _F, _P, _P],
+    "v3d_ema_blocks": [_I, _I],
     # flowmatch.cu
-    "v3d_flow_match": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "v3d_flow_level": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
+                       _F, _F, _I, _I, _I, _I, _F, _P],
     # attention.cu
     "v3d_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
 }

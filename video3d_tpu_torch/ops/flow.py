@@ -8,14 +8,21 @@ depth is warped along it and blended with the current frame, gated by a
 photometric and a depth residual so scene cuts and occlusions pass the
 current frame through.
 
-The two hot steps dispatch to hand-written CUDA kernels for a CUDA tensor
-and to the plain twins here for a CPU tensor:
+Two entries dispatch to hand-written CUDA kernels for a CUDA tensor and
+to plain twins here for a CPU tensor:
 
-* the separable shift warp, kernel B5 (:mod:`video3d_tpu_torch.kernels.
-  warp`), twin :func:`warp_bilinear_shifts_plain`;
-* one pyramid level's match, softargmin and residual smoothing, kernel
-  B6 (:mod:`video3d_tpu_torch.kernels.flowmatch`), twin
-  :func:`flow_match_plain`.
+* :func:`flow_level`, one pyramid level step (the incoming flow's
+  upsample, its clamp, the shift warp and the match, softargmin and
+  residual smoothing in one launch), kernel B6 (:mod:`video3d_tpu_torch.
+  kernels.flowmatch`), twin :func:`flow_level_plain`;
+* :func:`ema_tail`, the full-resolution EMA step after the flow (the
+  guide residual, the warp of the previous smoothed depth along the
+  upsampled flow, the depth gate and the blend), kernel B5's EMA launches
+  (:mod:`video3d_tpu_torch.kernels.warp`), twin :func:`ema_tail_plain`.
+
+The twins are compositions of :func:`warp_bilinear_shifts_plain` and
+:func:`flow_match_plain`, the plain twins of the public kernels
+``kernels.warp.warp_bilinear_shifts`` and ``kernels.flowmatch.flow_match``.
 
 The recurrence over frames is a plain loop; its carry stays on the
 device. Flow convention, as in the JAX package: ``cur(x) ~= prev(x +
@@ -112,15 +119,6 @@ def warp_bilinear_shifts_plain(img: torch.Tensor, flow_y: torch.Tensor,
                              False)
 
 
-def warp_bilinear_shifts(img: torch.Tensor, flow_y: torch.Tensor,
-                         flow_x: torch.Tensor, r: int) -> torch.Tensor:
-    """(H, W) backward warp by flow clamped to [-r, r]: kernel B5 on a
-    CUDA tensor, :func:`warp_bilinear_shifts_plain` on a CPU tensor."""
-    from video3d_tpu_torch.kernels import warp
-
-    return warp.warp_bilinear_shifts(img, flow_y, flow_x, r)
-
-
 def _candidate_offsets(search: int, device) -> tuple:
     """(K, 1, 1) f32 dy and dx of the candidate grid, dy-major."""
     n = 2 * search + 1
@@ -156,18 +154,21 @@ def flow_match_plain(cur: torch.Tensor, prev_w: torch.Tensor,
     return fy + ry, fx + rx
 
 
-def flow_match(cur: torch.Tensor, prev_w: torch.Tensor, fy: torch.Tensor,
-               fx: torch.Tensor, search: int = 2, radius: int = 3,
-               tau: float = 2.0) -> tuple:
-    """One level's match: kernel B6 on a CUDA tensor,
-    :func:`flow_match_plain` on a CPU tensor."""
-    from video3d_tpu_torch.kernels import flowmatch
-
-    return flowmatch.flow_match(cur, prev_w, fy, fx, search, radius, tau)
-
-
 def _resize_bl(img: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return resize2d(img, h, w, method="bilinear")
+
+
+def _incoming(cur: torch.Tensor, fy, fx) -> tuple:
+    """A level's incoming flow at ``cur``'s size: zero for None, else
+    resized (bilinear) and scaled by the ratio of the sizes."""
+    lh, lw = cur.shape
+    if fy is None:
+        fy = torch.zeros((lh, lw), dtype=torch.float32, device=cur.device)
+        return fy, torch.zeros_like(fy)
+    if tuple(fy.shape) == (lh, lw):
+        return fy, fx
+    sy, sx = lh / fy.shape[0], lw / fy.shape[1]
+    return _resize_bl(fy, lh, lw) * sy, _resize_bl(fx, lh, lw) * sx
 
 
 def _flow_level(cur: torch.Tensor, prev: torch.Tensor, fy: torch.Tensor,
@@ -183,11 +184,31 @@ def _flow_level_fast(cur: torch.Tensor, prev: torch.Tensor,
                      fy: torch.Tensor, fx: torch.Tensor, search: int,
                      radius: int, tau: float, warp_r: int) -> tuple:
     """One refinement level, gather-free: flow clamped to +-``warp_r``,
-    warp (B5), then match (B6)."""
+    warp (B5's twin), then match (B6's twin)."""
     fy = torch.clamp(fy, -warp_r, warp_r)
     fx = torch.clamp(fx, -warp_r, warp_r)
-    prev_w = warp_bilinear_shifts(prev, fy, fx, warp_r)
-    return flow_match(cur, prev_w, fy, fx, search, radius, tau)
+    prev_w = warp_bilinear_shifts_plain(prev, fy, fx, warp_r)
+    return flow_match_plain(cur, prev_w, fy, fx, search, radius, tau)
+
+
+def flow_level_plain(cur: torch.Tensor, prev: torch.Tensor, fy, fx,
+                     search: int, radius: int, tau: float, r: int) -> tuple:
+    """Plain twin of one level step of kernel B6: the incoming flow (None,
+    or at the coarser level's or this level's size) resized and scaled to
+    ``cur``'s size, clamped to +-``r``, the warp, then the match."""
+    fy, fx = _incoming(cur, fy, fx)
+    return _flow_level_fast(cur, prev, fy, fx, search, radius, tau, r)
+
+
+def flow_level(cur: torch.Tensor, prev: torch.Tensor, fy, fx, search: int,
+               radius: int, tau: float, r: int) -> tuple:
+    """One level step: kernel B6 (upsample, clamp, warp and match in one
+    launch) on a CUDA tensor, :func:`flow_level_plain` on a CPU tensor."""
+    if not cur.is_cuda:
+        return flow_level_plain(cur, prev, fy, fx, search, radius, tau, r)
+    from video3d_tpu_torch.kernels import flowmatch
+
+    return flowmatch.flow_level(cur, prev, fy, fx, search, radius, tau, r)
 
 
 def _pyramid(cur: torch.Tensor, prev: torch.Tensor, levels: int) -> tuple:
@@ -197,27 +218,30 @@ def _pyramid(cur: torch.Tensor, prev: torch.Tensor, levels: int) -> tuple:
         ph, pw = sizes[-1]
         sizes.append((max(2, -(-ph // 2)), max(2, -(-pw // 2))))
     pyr = [(cur, prev)]
+    if cur.is_cuda:
+        # both guides through each resize at once: half the GEMM launches
+        # (cuBLAS adds a split-K reduction to some of these shapes). The
+        # CPU resizes them apart: a stacked matmul there rounds other ways
+        # at small shapes, and the twins' results are pinned by test
+        both = torch.stack([cur, prev])
+        for ph, pw in sizes[1:]:
+            both = _resize_bl(both, ph, pw)
+            pyr.append((both[0], both[1]))
+        return pyr
     for ph, pw in sizes[1:]:
         c, p = pyr[-1]
         pyr.append((_resize_bl(c, ph, pw), _resize_bl(p, ph, pw)))
-    return sizes, pyr
+    return pyr
 
 
 def _coarse_to_fine(cur, prev, levels, step) -> tuple:
     """Shared pyramid walk of both estimators; ``step(lvl, c, p, fy, fx)``
-    refines one level (twice at the coarsest)."""
-    sizes, pyr = _pyramid(cur, prev, levels)
-    ph, pw = sizes[-1]
-    fy = torch.zeros((ph, pw), dtype=torch.float32, device=cur.device)
-    fx = torch.zeros_like(fy)
+    refines one level (twice at the coarsest) from the flow of the step
+    before: None at first, then at the coarser level's size or its own."""
+    pyr = _pyramid(cur, prev, levels)
+    fy = fx = None
     for lvl in range(levels - 1, -1, -1):
         c, p = pyr[lvl]
-        lh, lw = sizes[lvl]
-        if lvl < levels - 1:
-            sy = lh / sizes[lvl + 1][0]
-            sx = lw / sizes[lvl + 1][1]
-            fy = _resize_bl(fy, lh, lw) * sy
-            fx = _resize_bl(fx, lh, lw) * sx
         for _ in range(2 if lvl == levels - 1 else 1):
             fy, fx = step(lvl, c, p, fy, fx)
     return fy, fx
@@ -229,11 +253,12 @@ def estimate_flow_fast(cur: torch.Tensor, prev: torch.Tensor, max_flow: int,
     """Gather-free coarse-to-fine backward flow cur -> prev for (H, W)
     gray in [0, 255]; each level's incoming flow is clamped to
     ceil(max_flow / 2^lvl) + search, so motion beyond +-max_flow
-    saturates. Returns (flow_y, flow_x) f32 at the input resolution."""
+    saturates. Returns (flow_y, flow_x) f32 at the input resolution.
+    One :func:`flow_level` per level step."""
 
     def step(lvl, c, p, fy, fx):
         r_lvl = -(-int(max_flow) // (2 ** lvl)) + search
-        return _flow_level_fast(c, p, fy, fx, search, radius, tau, r_lvl)
+        return flow_level(c, p, fy, fx, search, radius, tau, r_lvl)
 
     return _coarse_to_fine(cur, prev, levels, step)
 
@@ -245,6 +270,7 @@ def estimate_flow(cur: torch.Tensor, prev: torch.Tensor, levels: int = 3,
     JAX package's reference estimator). Tests only."""
 
     def step(lvl, c, p, fy, fx):
+        fy, fx = _incoming(c, fy, fx)
         return _flow_level(c, p, fy, fx, search, radius, tau)
 
     return _coarse_to_fine(cur, prev, levels, step)
@@ -275,37 +301,66 @@ def flow_ema_params_from_jax(d: dict) -> FlowEMAParams:
     return FlowEMAParams(**d)
 
 
-def _ema_step(p: FlowEMAParams, carry: tuple, depth: torch.Tensor,
-              g: torch.Tensor) -> tuple:
-    """One frame: (prev smoothed depth, prev guide) carry, (H, W) depth
-    and (hq, wq) guide in -> (new carry, (H, W) smoothed depth)."""
-    prev_out, prev_g = carry
+def ema_tail_plain(p: FlowEMAParams, depth: torch.Tensor,
+                   prev_out: torch.Tensor, g: torch.Tensor,
+                   prev_g: torch.Tensor, fy: torch.Tensor, fx: torch.Tensor,
+                   rq: int) -> torch.Tensor:
+    """Plain twin of kernel B5's EMA step: from the guide-scale flow to the
+    (H, W) smoothed frame. The flow is clamped to +-``rq`` at guide scale
+    (what the full-resolution warp can apply, so the photometric residual
+    gates on the warp actually used), the residual of the warped previous
+    guide sets alpha, and the previous smoothed depth, warped along the
+    flow upsampled to full resolution, is blended with ``depth``; the
+    depth-residual gate raises alpha where the warp disagrees."""
     hq, wq = g.shape
     h, w = depth.shape
     sy, sx = h / hq, w / wq
-    # clamp the flow at guide scale to what the full-res warp can apply,
-    # so the photometric residual gates on the warp actually used
-    rq = max(1, int(round(p.max_warp / max(sy, sx))))
-    fy, fx = estimate_flow_fast(g, prev_g, max_flow=rq, levels=p.levels,
-                                search=p.search)
     fy = torch.clamp(fy, -rq, rq)
     fx = torch.clamp(fx, -rq, rq)
-    prev_g_w = warp_bilinear_shifts(prev_g, fy, fx, rq)
+    prev_g_w = warp_bilinear_shifts_plain(prev_g, fy, fx, rq)
     resid = box_sum_2d((g - prev_g_w).abs(), 2) / _area(hq, wq, 2, g.device)
     alpha_q = torch.clamp(p.alpha_min + p.gain * resid, p.alpha_min, 1.0)
 
     fy_f = _resize_bl(fy, h, w) * sy
     fx_f = _resize_bl(fx, h, w) * sx
     alpha = _resize_bl(alpha_q, h, w)
-    prev_warp = warp_bilinear_shifts(prev_out, fy_f, fx_f, p.max_warp)
+    prev_warp = warp_bilinear_shifts_plain(prev_out, fy_f, fx_f, p.max_warp)
     if p.d_gate_gain > 0.0:
         rd = (box_sum_2d((depth - prev_warp).abs(), 2)
               / _area(h, w, 2, depth.device))
         a_d = torch.clamp((rd / (rd.mean() + 1e-6) - p.d_gate_t0)
                           * p.d_gate_gain, 0.0, 1.0)
         alpha = torch.maximum(alpha, a_d)
-    out = alpha * depth + (1.0 - alpha) * prev_warp
-    return (out, g), out
+    return alpha * depth + (1.0 - alpha) * prev_warp
+
+
+def ema_tail(p: FlowEMAParams, depth: torch.Tensor, prev_out: torch.Tensor,
+             g: torch.Tensor, prev_g: torch.Tensor, fy: torch.Tensor,
+             fx: torch.Tensor, rq: int, out: torch.Tensor = None):
+    """The EMA step after the flow, written into ``out`` when given: kernel
+    B5's EMA launches (two, three with the depth gate) on a CUDA tensor,
+    :func:`ema_tail_plain` on a CPU tensor."""
+    if depth.is_cuda:
+        from video3d_tpu_torch.kernels import warp
+
+        return warp.ema_tail(p, depth, prev_out, g, prev_g, fy, fx, rq, out)
+    res = ema_tail_plain(p, depth, prev_out, g, prev_g, fy, fx, rq)
+    return res if out is None else out.copy_(res)
+
+
+def _ema_step(p: FlowEMAParams, carry: tuple, depth: torch.Tensor,
+              g: torch.Tensor, out: torch.Tensor = None) -> tuple:
+    """One frame: (prev smoothed depth, prev guide) carry, (H, W) depth
+    and (hq, wq) guide in -> (new carry, (H, W) smoothed depth), the
+    latter written into ``out`` when given."""
+    prev_out, prev_g = carry
+    hq, wq = g.shape
+    h, w = depth.shape
+    rq = max(1, int(round(p.max_warp / max(h / hq, w / wq))))
+    fy, fx = estimate_flow_fast(g, prev_g, max_flow=rq, levels=p.levels,
+                                search=p.search)
+    res = ema_tail(p, depth, prev_out, g, prev_g, fy, fx, rq, out)
+    return (res, g), res
 
 
 def flow_ema_scan(carry, depth: torch.Tensor, guide: torch.Tensor,
@@ -313,13 +368,14 @@ def flow_ema_scan(carry, depth: torch.Tensor, guide: torch.Tensor,
     """Run the causal flow-EMA over a (T, H, W) depth batch with its
     (T, hq, wq) guide. ``carry`` is the previous call's (frame -1's
     smoothed depth, guide), or None to seed it from frame 0. Returns
-    (new carry, (T, H, W) f32 smoothed); the carry stays on the device.
+    (new carry, (T, H, W) f32 smoothed); each frame is written in place
+    into the result, and the carry stays on the device.
     """
-    depth = depth.to(torch.float32)
-    guide = guide.to(torch.float32)
+    depth = depth.to(torch.float32).contiguous()
+    guide = guide.to(torch.float32).contiguous()
     if carry is None:
         carry = (depth[0], guide[0])
     out = torch.empty_like(depth)
     for t in range(depth.shape[0]):
-        carry, out[t] = _ema_step(params, carry, depth[t], guide[t])
+        carry, _ = _ema_step(params, carry, depth[t], guide[t], out[t])
     return carry, out

@@ -84,6 +84,32 @@ def _resample_matrix_on(n_in: int, n_out: int, method: str,
     return torch.from_numpy(resample_matrix(n_in, n_out, method)).to(device)
 
 
+@lru_cache(maxsize=64)
+def bilinear_taps(n_in: int, n_out: int) -> tuple:
+    """The two taps of each column of ``resample_matrix(n_in, n_out,
+    "bilinear")``: (n_out, 2) int32 source indices, ascending, and (n_out,
+    2) float32 weights, the matrix's own entries (a column with one
+    non-zero entry gets a second tap of weight 0 on the same index). The
+    flow kernels resample through these instead of the dense matrix."""
+    mat = resample_matrix(n_in, n_out, "bilinear")
+    idx = np.zeros((n_out, 2), dtype=np.int32)
+    w = np.zeros((n_out, 2), dtype=np.float32)
+    for o in range(n_out):
+        nz = np.flatnonzero(mat[:, o])
+        if len(nz) > 2:
+            raise ValueError(f"bilinear column {o} has {len(nz)} taps")
+        idx[o] = (nz[0], nz[-1])
+        w[o] = (mat[nz[0], o], mat[nz[-1], o] if len(nz) == 2 else 0.0)
+    return idx, w
+
+
+@lru_cache(maxsize=64)
+def bilinear_taps_on(n_in: int, n_out: int, device: torch.device) -> tuple:
+    """:func:`bilinear_taps` uploaded once per shape and device."""
+    idx, w = bilinear_taps(n_in, n_out)
+    return torch.from_numpy(idx).to(device), torch.from_numpy(w).to(device)
+
+
 def resize_width(img: torch.Tensor, w_out: int,
                  method: str = "lanczos4") -> torch.Tensor:
     """Resample the last (width) axis of (..., H, W) via one f32 matmul."""

@@ -1,4 +1,4 @@
-"""Small-shape checks of kernels B1-B4 against their plain twins.
+"""Small-shape checks of kernels B1-B6 against their plain twins.
 
 The shapes stress what the 1080p run at D = 64 does not: widths that are
 no multiple of a block's strip of columns, heights shorter than B1's ring
@@ -10,7 +10,12 @@ small frames that B3 picks its wider blocks), and for B3 every mode (2, 4,
 widths below and around twice its ring of pixels) with the int16 and the
 f32 accumulator; B4 widths and heights off its strip and segment sizes and
 below its window, 2 to 9 bands and one band a disparity (both counting
-schemes), ``min_region`` from 1 to 400. ``chip_smoke.py``
+schemes), ``min_region`` from 1 to 400. B6's level step walks the
+pyramid of guides from 5x7 to 540x960 at 3 and 4 levels (``r_lvl`` 3 to
+9, coarse sizes odd and even, 2x2 levels whose upsample is the
+identity); B5's EMA step runs guides from 5x7 to 540x960 at 2x and 4x
+(and a non-integer ratio), ``max_warp`` 8 and 16, the depth gate on and
+off; both must give the same bits on a second run. ``chip_smoke.py``
 and ``tests/test_torch_card.py`` both run them on the card; the functions
 raise ``AssertionError`` on a mismatch.
 """
@@ -20,7 +25,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from video3d_tpu_torch.kernels import costvol, sgm, speckle
+from video3d_tpu_torch.kernels import costvol, flowmatch, sgm, speckle, warp
+from video3d_tpu_torch.ops import flow
+from video3d_tpu_torch.ops.image import resize2d
 from video3d_tpu_torch.ops.speckle import speckle_filter_device
 from video3d_tpu_torch.ops.stereo import SGBMParams
 
@@ -190,3 +197,82 @@ def check_b4(device, b, h, w, min_region, max_diff, fill, seed=10) -> None:
             f"{fill}")
     assert torch.equal(got, want), \
         f"{what}: {int((got != want).sum().item())} pixels differ"
+
+
+# (height, width, levels, max_flow): r_lvl = ceil(max_flow / 2^lvl) + 2
+FLOW_LEVEL_CASES = [
+    (5, 7, 3, 4), (5, 7, 4, 7), (37, 53, 3, 4), (68, 120, 3, 7),
+    (135, 241, 4, 4), (270, 480, 3, 4), (271, 479, 4, 7), (540, 960, 3, 7),
+]
+
+# (height, width, guide height, guide width, max_warp, d_gate_gain)
+EMA_CASES = [
+    (20, 28, 5, 7, 16, 1.0), (20, 28, 5, 7, 8, 0.0),
+    (148, 212, 37, 53, 16, 1.0), (136, 240, 68, 120, 8, 1.0),
+    (270, 479, 68, 120, 16, 0.0), (1080, 1920, 270, 480, 16, 1.0),
+    (1080, 1920, 540, 960, 16, 1.0), (1080, 1920, 540, 960, 8, 0.0),
+]
+
+
+def smooth_plane(h: int, w: int, seed: int, device, scale=255.0):
+    """(h, w) f32 texture in [0, scale): random values on a grid 4x
+    coarser, resized (bilinear), so every level has gradient to match."""
+    r = np.random.default_rng(seed)
+    base = torch.from_numpy(r.uniform(0, scale, (h // 4 + 2, w // 4 + 2))
+                            .astype(np.float32)).to(device)
+    return resize2d(base, h, w, "bilinear").contiguous()
+
+
+def check_flow_level(device, h, w, levels, max_flow, seed=11) -> None:
+    """B6's level step on the card against its twin at every step of the
+    pyramid walk, flow within 2e-4 px, the same bits on a second run; each
+    step starts from the kernel's own flow of the step before."""
+    cur = smooth_plane(h, w, seed, device)
+    prev = flow.shift_edge(cur, 1, -2).contiguous()
+    fy = fx = None
+    for lvl, (c, p) in reversed(list(enumerate(
+            flow._pyramid(cur, prev, levels)))):
+        r_lvl = -(-max_flow // (2 ** lvl)) + 2
+        for _ in range(2 if lvl == levels - 1 else 1):
+            n = flowmatch.launches
+            got = flowmatch.flow_level(c, p, fy, fx, 2, 3, 2.0, r_lvl)
+            again = flowmatch.flow_level(c, p, fy, fx, 2, 3, 2.0, r_lvl)
+            assert flowmatch.launches == n + 2
+            want = flow.flow_level_plain(c, p, fy, fx, 2, 3, 2.0, r_lvl)
+            torch.cuda.synchronize(device)
+            what = (f"B6 level {lvl} of {levels} at {tuple(c.shape)} from "
+                    f"{(h, w)}, r_lvl {r_lvl}")
+            for g, a, wv in zip(got, again, want):
+                assert g.shape == c.shape, what
+                assert torch.equal(g, a), f"{what}: runs differ"
+                err = (g - wv).abs().max().item()
+                assert err <= 2e-4, f"{what}: max |err| {err} px"
+            fy, fx = got
+
+
+def check_ema_tail(device, h, w, hq, wq, max_warp, gain_d, seed=12) -> None:
+    """B5's EMA step on the card against its twin on unit-scale depth:
+    within 1e-4, the same bits on a second run (the gate's mean is summed
+    in a fixed order), two launches (three with the gate)."""
+    p = flow.FlowEMAParams(max_warp=max_warp, d_gate_gain=gain_d)
+    rq = max(1, int(round(max_warp / max(h / hq, w / wq))))
+    r = np.random.default_rng(seed)
+    depth = smooth_plane(h, w, seed, device, 1.0)
+    prev_out = (flow.shift_edge(depth, 2, -3) + torch.from_numpy(r.normal(
+        0, 0.05, (h, w)).astype(np.float32)).to(device)).contiguous()
+    g = smooth_plane(hq, wq, seed + 1, device)
+    prev_g = flow.shift_edge(g, 0, 1).contiguous()
+    # past the clamp on purpose: both sides must clamp to [-rq, rq]
+    fy, fx = (torch.from_numpy(r.uniform(-rq - 1, rq + 1, (hq, wq)).astype(
+        np.float32)).to(device) for _ in range(2))
+    n = warp.launches
+    got = warp.ema_tail(p, depth, prev_out, g, prev_g, fy, fx, rq)
+    again = warp.ema_tail(p, depth, prev_out, g, prev_g, fy, fx, rq)
+    assert warp.launches == n + 2 * (3 if gain_d > 0 else 2)
+    want = flow.ema_tail_plain(p, depth, prev_out, g, prev_g, fy, fx, rq)
+    torch.cuda.synchronize(device)
+    what = (f"B5 EMA step at {(h, w)} from {(hq, wq)}, max_warp {max_warp}, "
+            f"gate {gain_d}")
+    assert torch.equal(got, again), f"{what}: runs differ"
+    err = (got - want).abs().max().item()
+    assert err <= 1e-4, f"{what}: max |err| {err}"

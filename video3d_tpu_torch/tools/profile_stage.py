@@ -7,10 +7,14 @@ unsqueeze), warms up, and profiles ``--reps`` calls with
 ``torch.profiler``. Prints the card's name and power limit, the wall time
 per batch, the device's busy time per batch (the union of its kernel and
 copy intervals) and its share of the wall time, then every kernel by
-device time per batch, and a last JSON line of the same.
+device time per batch, and a last JSON line of the same. With
+``--temporal-smooth flow`` each call also pushes the batch's depth and
+guide through the flow smoother's stream (``TemporalFlowEMAStream``), as
+the stage with ``temporal_smooth="flow"`` does.
 
 Usage: ``python -m video3d_tpu_torch.tools.profile_stage [--paths 8]
-[--route legacy|xla|mxu] [--batch 8] [--reps 3]`` on a CUDA card.
+[--route legacy|xla|mxu] [--temporal-smooth none|flow] [--batch 8]
+[--reps 3]`` on a CUDA card.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import numpy as np
 import torch
 
 from video3d_tpu_torch.ops.stereo import HORIZONTAL_ROUTES, SGBMParams
+from video3d_tpu_torch.parallel.temporal import TemporalFlowEMAStream
 from video3d_tpu_torch.stages.depth import depth_batch_pipeline
 
 
@@ -57,14 +62,22 @@ def _busy_us(intervals) -> float:
 
 
 def profile_stage(frames: torch.Tensor, params: SGBMParams,
-                  route: str = "legacy", reps: int = 3) -> dict:
+                  route: str = "legacy", reps: int = 3,
+                  smooth: str = "none") -> dict:
     """Profile ``reps`` calls of the stage on ``frames`` (already on the
-    card) after one warm-up call; times per batch in ms."""
+    card) after one warm-up call (which seeds the smoother's carry);
+    times per batch in ms."""
     from torch.profiler import ProfilerActivity, profile
 
+    stream = TemporalFlowEMAStream()
+
     def run():
-        return depth_batch_pipeline(frames, params=params,
-                                    horizontal_route=route)
+        if smooth == "none":
+            return depth_batch_pipeline(frames, params=params,
+                                        horizontal_route=route)
+        depth, guide = depth_batch_pipeline(
+            frames, params=params, horizontal_route=route, return_guide=True)
+        return stream.push(depth, guide)
 
     run()
     torch.cuda.synchronize()
@@ -96,6 +109,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--paths", type=int, default=5, choices=(2, 4, 5, 8))
     ap.add_argument("--route", default="legacy", choices=HORIZONTAL_ROUTES)
+    ap.add_argument("--temporal-smooth", default="none",
+                    choices=("none", "flow"))
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--reps", type=int, default=3)
     args = ap.parse_args(argv)
@@ -108,9 +123,10 @@ def main(argv=None) -> int:
         text=True).stdout.strip().splitlines()[0]
     frames = torch.from_numpy(sbs_batch(args.batch)).to("cuda")
     res = profile_stage(frames, SGBMParams(num_paths=args.paths),
-                        args.route, args.reps)
+                        args.route, args.reps, args.temporal_smooth)
     print(f"card: {card}")
-    print(f"stage, {args.paths} paths, route {args.route}, batch "
+    print(f"stage, {args.paths} paths, route {args.route}, smoother "
+          f"{args.temporal_smooth}, batch "
           f"{args.batch}: {res['wall_ms']:.3f} ms wall per batch under the "
           f"profiler, device busy {res['busy_ms']:.3f} ms "
           f"({100 * res['busy_share']:.1f}%)")
@@ -118,7 +134,8 @@ def main(argv=None) -> int:
         print(f"  {ms:9.3f} ms {100 * ms / res['busy_ms']:6.2f}% "
               f"{calls:6.1f} calls  {name[:110]}")
     print(json.dumps(dict(res, paths=args.paths, route=args.route,
-                          batch=args.batch, card=card)))
+                          smooth=args.temporal_smooth, batch=args.batch,
+                          card=card)))
     return 0
 
 
