@@ -17,7 +17,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    heights, D from 16 to 128, every SGM mode, 2 to 65 speckle bands;
    gated, not timed); B8a
    (``sgm_aggregate_pallas``, 8 paths)
-   on f32 and bf16 cost, B8c (W-major sweeps) forward and reverse, and the
+   on f32 and bf16 cost, B8c (W-major sweeps: one direction forward and
+   reverse, and both directions in one launch at the int16 and the f32
+   accumulator, at HL = 1080 and HP = 1152), and the
    B8b round trip (equal to the input and to ``permute().contiguous()``)
    at the same shape; the six int16 probe ops (P); B5 flow warp at
    1080x1920 with r = 16 and at 270x480 with r = 6, B6 flow match at
@@ -253,6 +255,7 @@ def main() -> int:
     from video3d_tpu_torch.ops.image import resize2d, rgb_to_gray
     from video3d_tpu_torch.ops.speckle import speckle_filter_device
     from video3d_tpu_torch.ops.stereo import (INVALID, SGBMParams,
+                                              acc_dtype_for_params,
                                               sgbm_disparity, sgm_aggregate)
     from video3d_tpu_torch.parallel.temporal import TemporalFlowEMAStream
     from video3d_tpu_torch.stages.depth import (StereoDepthExtractor,
@@ -511,6 +514,8 @@ def main() -> int:
         card_checks.check_b3(dev, *case)
     for case in card_checks.B4_CASES:
         card_checks.check_b4(dev, *case)
+    for case in card_checks.B8C_CASES:
+        card_checks.check_b8c(dev, *case)
     print(f"B1 equals its twin at {len(card_checks.B1_CASES)} small shapes "
           f"(D 16-128, widths 33-1000, heights 2-137, min_disparity 0 and "
           f"3, blocks 3-9); B2 at {len(card_checks.B2_CASES)} (widths "
@@ -518,7 +523,9 @@ def main() -> int:
           f"{len(card_checks.B3_CASES)} (2, 4, 5 and 8 paths, with and "
           f"without the margin); B4 equals its twin at "
           f"{len(card_checks.B4_CASES)} (2 to 65 bands, min_region 1-400, "
-          f"maps smaller than the window)")
+          f"maps smaller than the window); B8c at "
+          f"{len(card_checks.B8C_CASES)} (both entries, D 16-128, rows "
+          f"1-1152, widths 1-257, all three type pairs, twice each)")
 
     # B8a, the public sgm_aggregate_pallas, at 8 paths on f32 and bf16 cost
     # (the B1 volume as floats); bit-equal to its twin
@@ -542,38 +549,70 @@ def main() -> int:
                       8 * SWEEP_OPS * vol / B))
         del cf
 
-    # B8c forward then reverse on the W-major volume: both horizontals
+    # B8c on the W-major volume. The one-direction entry, forward into a
+    # fresh accumulator and reverse added in place, against its twin; the
+    # two-direction entry (one launch, as the routes call it) at the int16
+    # (5 paths) and the f32 (8 paths) accumulator against its twin, twice
+    # for the same bits, and against B2's sums; at HL = 1080 (route xla)
+    # and HP = 1152 (route mxu)
     cost_t = cost.permute(0, 3, 2, 1).contiguous()  # (B, D, W, H)
     fwd = wmajor.wmajor_sweep(cost_t, None, p.p1, p.p2, False, torch.int16)
     fwd_p = wmajor.wmajor_sweep_plain(cost_t, None, p.p1, p.p2, False,
                                       torch.int16)
-    both_p = wmajor.wmajor_sweep_plain(cost_t, fwd_p, p.p1, p.p2, True)
-    both = wmajor.wmajor_sweep(cost_t, fwd.clone(), p.p1, p.p2, True)
+    rev = wmajor.wmajor_sweep(cost_t, fwd.clone(), p.p1, p.p2, True)
+    rev_p = wmajor.wmajor_sweep_plain(cost_t, fwd_p, p.p1, p.p2, True)
     torch.cuda.synchronize()
-    err = max((fwd.int() - fwd_p.int()).abs().max().item(),
-              (both.int() - both_p.int()).abs().max().item())
-    check(err == 0, f"B8c differs from twin: {err}")
-    check(torch.equal(both.permute(0, 3, 2, 1), sgm.horizontal_sweeps(cost, p)),
-          "B8c's two sweeps differ from B2's")
-    scratch = both.clone()
-
-    def b8c():
-        wmajor.wmajor_sweep(cost_t, None, p.p1, p.p2, False, torch.int16)
-        wmajor.wmajor_sweep(cost_t, scratch, p.p1, p.p2, True)
-
-    def b8c_plain():
-        wmajor.wmajor_sweep_plain(cost_t, wmajor.wmajor_sweep_plain(
-            cost_t, None, p.p1, p.p2, False, torch.int16), p.p1, p.p2, True)
-
-    add_row("B8c", at=at_1080 + ", forward + reverse sweep",
-            name="B8c wmajor_sweep (W-major horizontals)",
-            source="video3d_tpu_torch/csrc/wmajor.cu",
-            replaces="video3d_tpu/kernels/sgm.py:391", max_abs_err=err,
-            ms=cuda_ms(b8c, 3) / B, plain_ms=cuda_ms(b8c_plain, 1) / B,
-            # the int16 cost read once, the int16 total written once, as
-            # B2's row counts the same function
-            work=(vol * (2 + 2) / B, 2 * SWEEP_OPS * vol / B))
-    del cost_t, fwd, fwd_p, both, both_p, scratch
+    err1 = max((fwd.int() - fwd_p.int()).abs().max().item(),
+               (rev.int() - rev_p.int()).abs().max().item())
+    check(err1 == 0, f"B8c one direction differs from twin: {err1}")
+    del fwd, fwd_p, rev
+    for key, pp in (("B8c", p), ("B8c-f32", p8)):
+        adt = acc_dtype_for_params(torch.int16, pp)
+        both = wmajor.horizontal_sweeps_wmajor_kernel(cost_t, pp.p1, pp.p2,
+                                                      adt)
+        again = wmajor.horizontal_sweeps_wmajor_kernel(cost_t, pp.p1, pp.p2,
+                                                       adt)
+        both_p, plain_ms = timed(lambda: wmajor.horizontal_sweeps_wmajor_plain(
+            cost_t, pp.p1, pp.p2, adt))
+        torch.cuda.synchronize()
+        err = max(err1, (both.double() - both_p.double()).abs().max().item())
+        check(err == 0, f"{key} differs from twin: {err}")
+        check(torch.equal(both, again), f"{key}: two runs differ")
+        check(both.dtype == adt and (pp is p8 or torch.equal(both, rev_p)),
+              f"{key}: two directions differ from two one-direction sweeps")
+        check(torch.equal(both.permute(0, 3, 2, 1),
+                          sgm.horizontal_sweeps(cost, pp)),
+              f"{key}: sums differ from B2's")
+        del both_p, again
+        hp = wmajor.horizontal_plan
+        print(f"{key}: one launch, {hp[2]} blocks of 256 threads, {hp[0]} "
+              f"resident on each of {hp[1]} multiprocessors, {hp[3]} "
+              f"round(s) of {hp[4]}-row tiles, {hp[5]} shared bytes a block")
+        if pp is p:  # HP = 1152, the mxu route's padded volume
+            cost_hp = wmajor.transpose_to_wmajor(cost)
+            got_hp = wmajor.horizontal_sweeps_wmajor_kernel(cost_hp, pp.p1,
+                                                            pp.p2, adt)
+            check(torch.equal(got_hp[..., :H], both),
+                  f"{key} at HP = 1152 differs from HL = 1080")
+            check(torch.equal(got_hp, wmajor.horizontal_sweeps_wmajor_plain(
+                cost_hp, pp.p1, pp.p2, adt)),
+                f"{key} at HP = 1152 differs from twin")
+            del cost_hp, got_hp
+        del both
+        add_row(key, at=at_1080 + ", both directions in one launch",
+                name=f"B8c horizontal_sweeps_wmajor_kernel (W-major "
+                     f"horizontals), {str(adt)[6:]} acc",
+                source="video3d_tpu_torch/csrc/wmajor.cu",
+                replaces="video3d_tpu/kernels/sgm.py:391", max_abs_err=err,
+                ms=cuda_ms(lambda: wmajor.horizontal_sweeps_wmajor_kernel(
+                    cost_t, pp.p1, pp.p2, adt), 5) / B,
+                plain_ms=plain_ms / B,
+                # the int16 cost read once, the total written once, as
+                # B2's row counts the same function
+                work=(vol * (2 + torch.tensor([], dtype=adt).element_size())
+                      / B, 2 * SWEEP_OPS * vol / B))
+    del cost_t, rev_p
+    torch.cuda.empty_cache()
 
     # B8b round trip: equal to the input and to permute().contiguous()
     t = wmajor.transpose_to_wmajor(cost)
@@ -1137,8 +1176,9 @@ def main() -> int:
         # -- 4e. the W-major horizontal routes, 5 and 8 paths ----------------
         phase("4e. the routes")
         rgl, rgr = gray_pair(torch.from_numpy(hh_batches[1][0]).to(dev))
-        counts(reset=True)
+        route_launches = {}
         for pp in (p, p8):
+            counts(reset=True)
             legacy = sgbm_disparity(rgl, rgr, pp)
             for route in ("xla", "mxu"):
                 got = sgbm_disparity(rgl, rgr, pp, horizontal_route=route)
@@ -1148,9 +1188,15 @@ def main() -> int:
             print(f"routes xla and mxu at {pp.num_paths} paths: disparities "
                   f"equal to legacy's bit for bit (batch of 8, valid "
                   f"{float((legacy >= 0).float().mean()):.4f})")
-        route_launches = ran(counts(), ("B8b", "B8c"), "the routes")
-        print(f"routes: launches B8b, B8c = {route_launches}")
-        rows["B8b"]["launches"], rows["B8c"]["launches"] = route_launches
+            n8b, n8c = route_launches[pp.num_paths] = ran(
+                counts(), ("B8b", "B8c"), f"the routes at {pp.num_paths} "
+                f"paths")
+            check(n8c == 2, f"B8c launched {n8c} times for two route calls")
+            print(f"routes at {pp.num_paths} paths: launches B8b, B8c = "
+                  f"{[n8b, n8c]} (one B8c launch a route call)")
+        rows["B8b"]["launches"] = route_launches[5][0] + route_launches[8][0]
+        rows["B8c"]["launches"] = route_launches[5][1]
+        rows["B8c-f32"]["launches"] = route_launches[8][1]
         del legacy, got, rgl, rgr
         torch.cuda.empty_cache()
 

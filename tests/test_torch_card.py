@@ -6,7 +6,7 @@ on a machine that has a CUDA card and no JAX:
     python -m pytest --noconftest tests/test_torch_card.py -m cuda
 
 Every test is marked ``cuda`` and skips where ``torch.cuda.is_available()``
-is false. B1-B4 run the small-shape lists of
+is false. B1-B4 and B8c run the small-shape lists of
 ``video3d_tpu_torch/tools/card_checks.py`` (ragged widths, short heights,
 D from 16 to 128, ``min_disparity`` 3, every SGM mode, both accumulator
 types, 2 bands to one a disparity), B6's level step and B5's EMA step
@@ -173,6 +173,11 @@ def test_b8c_matches_twin(dev, reverse, cost_dtype, acc_dtype):
     got = wmajor.wmajor_sweep(cost_t, acc.clone(), 600.0, 2400.0, reverse)
     assert wmajor.sweep_launches == n + 1
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", card_checks.B8C_CASES, ids=str)
+def test_b8c_cases_match_twin(dev, case):
+    card_checks.check_b8c(dev, *case)
 
 
 def test_probe_ops_match_torch(dev):

@@ -124,7 +124,7 @@ def test_load_dpt_safetensors_matches_hf_and_jax(tmp_path):
     tmodel = _hf_tiny(seed=3)
     tmodel.save_pretrained(tmp_path, safe_serialization=True)
     fn = tdpt.load_dpt_safetensors(str(tmp_path), dtype=torch.float32,
-                                   infer_size=64)
+                                   infer_size=64, device="cpu")
     # the network alone against HF's predicted_depth
     x = np.random.default_rng(4).normal(size=(2, 64, 64, 3)).astype(
         np.float32)
@@ -142,7 +142,7 @@ def test_load_dpt_safetensors_matches_hf_and_jax(tmp_path):
                                np.asarray(jax.jit(jfn)(jnp.asarray(frames))),
                                rtol=1e-3, atol=2e-4)
     # load_dpt_guidance prefers the safetensors directory; bf16 by default
-    gfn = tdpt.load_dpt_guidance(str(tmp_path), infer_size=64)
+    gfn = tdpt.load_dpt_guidance(str(tmp_path), infer_size=64, device="cpu")
     assert next(gfn.module.parameters()).dtype == torch.bfloat16
     out = gfn(torch.from_numpy(frames))
     assert out.shape == (1, 40, 64) and torch.isfinite(out).all()
@@ -155,7 +155,7 @@ def test_load_dpt_guidance_from_a_torch_checkpoint(tmp_path):
     tmodel.save_pretrained(tmp_path, safe_serialization=False)
     assert not list(tmp_path.glob("*.safetensors"))
     fn = tdpt.load_dpt_guidance(str(tmp_path), dtype=torch.float32,
-                                infer_size=64)
+                                infer_size=64, device="cpu")
     x = np.random.default_rng(7).normal(size=(1, 64, 64, 3)).astype(
         np.float32)
     with torch.no_grad():
@@ -166,17 +166,37 @@ def test_load_dpt_guidance_from_a_torch_checkpoint(tmp_path):
 
 
 def test_load_dpt_guidance_raises_without_checkpoint(tmp_path):
-    with pytest.raises(Exception):
-        tdpt.load_dpt_guidance(str(tmp_path / "missing"))
+    with pytest.raises(Exception) as err:
+        tdpt.load_dpt_guidance(str(tmp_path / "missing"), device="cpu")
+    assert "CUDA" not in str(err.value)  # the checkpoint, not the device
+
+
+@pytest.mark.parametrize("load", ["random", "safetensors", "guidance"])
+def test_dpt_loaders_default_to_cuda(tmp_path, monkeypatch, load):
+    """With no device the loaders put the model on ``cuda``, and raise
+    where CUDA is missing: nothing falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = {
+        "random": lambda: tdpt.random_dpt_guidance(tdpt.DPTConfig.tiny()),
+        "safetensors": lambda: tdpt.load_dpt_safetensors(str(tmp_path)),
+        "guidance": lambda: tdpt.load_dpt_guidance(str(tmp_path)),
+    }
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        calls[load]()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert tdpt._loader_device(None, load) == torch.device("cuda")
 
 
 def test_random_dpt_guidance_is_seeded(jax_params):
     cfg = tdpt.DPTConfig.tiny()
     frames = torch.from_numpy(np.random.default_rng(6).uniform(
         0, 255, size=(2, 32, 48, 3)).astype(np.float32))
-    a = tdpt.random_dpt_guidance(cfg, seed=0, infer_size=64)
-    b = tdpt.random_dpt_guidance(cfg, seed=0, infer_size=64)
-    c = tdpt.random_dpt_guidance(cfg, seed=1, infer_size=64)
+    a = tdpt.random_dpt_guidance(cfg, seed=0, infer_size=64,
+                                 device="cpu")
+    b = tdpt.random_dpt_guidance(cfg, seed=0, infer_size=64,
+                                 device="cpu")
+    c = tdpt.random_dpt_guidance(cfg, seed=1, infer_size=64,
+                                 device="cpu")
     assert next(a.module.parameters()).dtype == torch.bfloat16
     oa, ob, oc = a(frames), b(frames), c(frames)
     assert oa.shape == (2, 32, 48) and torch.isfinite(oa).all()

@@ -79,6 +79,23 @@ def test_b8c_sweep_twin_matches_jax(cost_40x128, reverse, acc_dtype):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("acc_dtype", [torch.int16, torch.float32])
+def test_b8c_both_directions_twin_matches_jax(acc_dtype):
+    """The twin of B8c's two-direction entry vs JAX
+    ``_horizontal_passes_wmajor`` at an odd height and width: exact."""
+    r = np.random.default_rng(19)
+    cost = r.integers(0, 1551, (1, 37, 16, 100)).astype(np.int16)
+    want = np.asarray(_horizontal_passes_wmajor(
+        jnp.asarray(cost), 600.0, 2400.0,
+        jnp.int16 if acc_dtype == torch.int16 else jnp.float32,
+        interpret=True, route="xla"))  # (B, H, D, W)
+    cost_t = torch.from_numpy(cost.transpose(0, 2, 3, 1).copy())
+    got = wmajor.horizontal_sweeps_wmajor_kernel(cost_t, 600.0, 2400.0,
+                                                 acc_dtype)
+    assert got.dtype == acc_dtype and got.shape == cost_t.shape
+    np.testing.assert_array_equal(got.permute(0, 3, 1, 2).numpy(), want)
+
+
 @pytest.mark.parametrize("route", ["xla", "mxu"])
 @pytest.mark.parametrize("paths", [5, 8])
 def test_b8c_horizontal_passes_match_jax(cost_40x128, paths, route):
@@ -209,6 +226,25 @@ def test_cuda_b8c_matches_twin(cuda_device, reverse, cost_dtype, acc_dtype):
         cuda_device, acc_dtype)
     want = wmajor.wmajor_sweep_plain(cost_t, acc, 600.0, 2400.0, reverse)
     got = wmajor.wmajor_sweep(cost_t, acc.clone(), 600.0, 2400.0, reverse)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cost_dtype,acc_dtype",
+                         [(torch.int16, torch.int16),
+                          (torch.int16, torch.float32),
+                          (torch.float32, torch.float32)])
+def test_cuda_b8c_horizontal_matches_twin(cuda_device, cost_dtype,
+                                          acc_dtype):
+    """B8c's two-direction entry, one launch, equals its twin."""
+    r = np.random.default_rng(2)
+    cost_t = torch.from_numpy(r.uniform(0, 1550, (2, 64, 90, 70))).to(
+        cuda_device, cost_dtype)
+    p1, p2 = (600.0, 2400.0) if cost_dtype == torch.int16 else (7.25, 30.5)
+    want = wmajor.horizontal_sweeps_wmajor_plain(cost_t, p1, p2, acc_dtype)
+    n = wmajor.sweep_launches
+    got = wmajor.horizontal_sweeps_wmajor_kernel(cost_t, p1, p2, acc_dtype)
+    assert wmajor.sweep_launches == n + 1
     assert torch.equal(got, want)
 
 

@@ -111,11 +111,13 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "sgm_common.cuh"
+
 namespace {
 
-constexpr int SENT = 1 << 20;
+using namespace v3dsgm;
+
 constexpr float BIGF = 1e9f;
-constexpr unsigned FULL = 0xffffffffu;
 
 // type codes of the C interface
 enum { T_I16 = 0, T_F32 = 1, T_BF16 = 2 };
@@ -253,12 +255,6 @@ constexpr int RINIT = INT_MAX;  // a right-image key nothing voted for
 constexpr unsigned SPIN_LIMIT = 1u << 24;  // polls before a block gives up
 static_assert(PF >= 1 && (PF & (PF - 1)) == 0, "ring slots");
 
-// Lanes of a warp that share one pixel of a vertical block, each with three
-// or four adjacent disparities: a warp holds 4, 2 or 1 columns, so the
-// shuffles of a step are shared between them.
-__host__ __device__ inline int lanes_per_pixel(int D) {
-  return D <= 32 ? 8 : D <= 64 ? 16 : 32;
-}
 // columns of the strip of a vertical block of vw warps
 __host__ __device__ inline int strip_cols(int D, int vw) {
   return vw * (32 / lanes_per_pixel(D));
@@ -266,29 +262,6 @@ __host__ __device__ inline int strip_cols(int D, int vw) {
 // ints between the two buffers of a block's right-image keys
 __host__ __device__ inline int keys_pitch(int D, int vw) {
   return (strip_cols(D, vw) + D - 1 + 3) & ~3;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* global) {
-  unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(global)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// min over the LPP lanes of a pixel
-template <int LPP>
-__device__ __forceinline__ int seg_min(int v) {
-#pragma unroll
-  for (int o = LPP / 2; o > 0; o >>= 1)
-    v = min(v, __shfl_xor_sync(FULL, v, o));
-  return v;
 }
 
 // value v[d % DPL] of the lane of this pixel that owns disparity d
@@ -328,33 +301,6 @@ __device__ __forceinline__ void store_run(T* p, const int (&v)[DPL]) {
   } else {
 #pragma unroll
     for (int j = 0; j < DPL; ++j) p[j] = (T)v[j];
-  }
-}
-
-// One step of the recurrence on a lane's DPL disparities of a pixel held
-// by LPP lanes (int32, exact). Past D the cost is SENT, so a carry there is
-// SENT or more (and at most SENT + p2) from the first step on and no step
-// needs a mask: it never is the minimum, and as the neighbour of D - 1 it
-// loses to every real value, as the sentinel would.
-template <int LPP, int DPL>
-__device__ __forceinline__ void sgm_step(const int (&L)[DPL],
-                                         const int (&c)[DPL], int (&Ln)[DPL],
-                                         int dl, int p1, int p2) {
-  int m = L[0];
-#pragma unroll
-  for (int j = 1; j < DPL; ++j) m = min(m, L[j]);
-  m = seg_min<LPP>(m);
-  int below = __shfl_up_sync(FULL, L[DPL - 1], 1, LPP);
-  int above = __shfl_down_sync(FULL, L[0], 1, LPP);
-  if (dl == 0) below = SENT;
-  if (dl == LPP - 1) above = SENT;
-  const int mp2 = m + p2;
-#pragma unroll
-  for (int j = 0; j < DPL; ++j) {
-    int dn = j > 0 ? L[j - 1] : below;
-    int up = j < DPL - 1 ? L[j + 1] : above;
-    int best = min(min(L[j], mp2), min(up, dn) + p1);
-    Ln[j] = (c[j] - m) + best;
   }
 }
 

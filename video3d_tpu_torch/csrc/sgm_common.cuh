@@ -1,0 +1,78 @@
+// Device helpers shared by the SGM sweep kernels B2, B3 (sgm.cu) and B8c
+// (wmajor.cu): a pixel's D disparities held by lanes_per_pixel lanes of a
+// warp, three or four adjacent ones a lane; the min over D as a shuffle
+// butterfly, the d-1/d+1 neighbours over shuffles; asynchronous copies into
+// shared memory.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace v3dsgm {
+
+constexpr int SENT = 1 << 20;  // integer carry sentinel past both ends of d
+constexpr unsigned FULL = 0xffffffffu;
+
+// Lanes of a warp that share one pixel, each with three or four adjacent
+// disparities (DPL: 4, or 3 for 64 < D <= 96): a warp holds 4, 2 or 1
+// pixels, so the shuffles of a step are shared between them.
+__host__ __device__ inline int lanes_per_pixel(int D) {
+  return D <= 32 ? 8 : D <= 64 ? 16 : 32;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* global) {
+  unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(global)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ int lmin(int a, int b) { return min(a, b); }
+__device__ __forceinline__ float lmin(float a, float b) { return fminf(a, b); }
+
+// min over the LPP lanes of a pixel
+template <int LPP, typename C>
+__device__ __forceinline__ C seg_min(C v) {
+#pragma unroll
+  for (int o = LPP / 2; o > 0; o >>= 1)
+    v = lmin(v, __shfl_xor_sync(FULL, v, o));
+  return v;
+}
+
+// One step of the recurrence on a lane's DPL disparities of a pixel held
+// by LPP lanes, in the TPU kernel's order of operations, (c + best) - m,
+// with `sent` past both ends of d. An int32 step is exact (integer costs):
+// past D the cost is SENT, so a carry there is SENT or more (and at most
+// SENT + p2) from the first step on and no step needs a mask: it never is
+// the minimum, and as the neighbour of D - 1 it loses to every real value,
+// as the sentinel would. An f32 step rounds as the TPU kernel and the twin
+// do; its caller sets the carries past D back to the sentinel.
+template <int LPP, int DPL, typename C>
+__device__ __forceinline__ void sgm_step(const C (&L)[DPL], const C (&c)[DPL],
+                                         C (&Ln)[DPL], int dl, C p1, C p2,
+                                         C sent = C(SENT)) {
+  C m = L[0];
+#pragma unroll
+  for (int j = 1; j < DPL; ++j) m = lmin(m, L[j]);
+  m = seg_min<LPP>(m);
+  C below = __shfl_up_sync(FULL, L[DPL - 1], 1, LPP);
+  C above = __shfl_down_sync(FULL, L[0], 1, LPP);
+  if (dl == 0) below = sent;
+  if (dl == LPP - 1) above = sent;
+  const C mp2 = m + p2;
+#pragma unroll
+  for (int j = 0; j < DPL; ++j) {
+    C dn = j > 0 ? L[j - 1] : below;
+    C up = j < DPL - 1 ? L[j + 1] : above;
+    C best = lmin(lmin(L[j], mp2), lmin(up, dn) + p1);
+    Ln[j] = (c[j] + best) - m;
+  }
+}
+
+}  // namespace v3dsgm

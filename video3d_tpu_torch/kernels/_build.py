@@ -53,7 +53,9 @@ _SIGNATURES = {
     "v3d_sgm_lr_check": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
     # wmajor.cu
     "v3d_wmajor_sweep": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I, _I,
-                         _P],
+                         _P, _P],
+    "v3d_wmajor_horizontal": [_P, _P, _I, _I, _I, _I, _F, _F, _I, _I, _P,
+                              _P],
     "v3d_wmajor_transpose": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # probe_i16.cu
     "v3d_probe_i16": [_I, _P, _P, _P, _P, _I, _I, _P],

@@ -1,18 +1,24 @@
 """Kernel B8b and B8c wrappers: the W-major horizontal route of the matcher.
 
 CUDA source: ``video3d_tpu_torch/csrc/wmajor.cu``. B8c replaces the TPU
-kernel ``video3d_tpu/kernels/sgm.py _directional_pass_wmajor``: one
+kernel ``video3d_tpu/kernels/sgm.py _directional_pass_wmajor``: a
 horizontal SGM sweep of the W-major ``(B, D, W, HL)`` volume (HL: image
-rows, padded or not) with f32 carries. B8b replaces ``transpose_to_wmajor``
-and ``transpose_from_wmajor``: exact layout changes between the port's
-``(B, H, W, D)`` volume and ``(B, D, W, HP)``, HP = H rounded up to 128,
-whose padding lanes the port writes as zero (no consumer reads them). The
-JAX package takes its ``mxu`` transposes only when W % 128 == 0; these take
-any width. The plain twins are :func:`wmajor_sweep_plain`,
+rows, padded or not) with f32 carries. On the card it is one kernel with
+two entries: :func:`horizontal_sweeps_wmajor_kernel` runs both directions
+in one launch (JAX ``_horizontal_passes_wmajor`` runs two sweeps), and
+:func:`wmajor_sweep` one direction, added into a given accumulator. B8b
+replaces ``transpose_to_wmajor`` and ``transpose_from_wmajor``: exact
+layout changes between the port's ``(B, H, W, D)`` volume and
+``(B, D, W, HP)``, HP = H rounded up to 128, whose padding lanes the port
+writes as zero (no consumer reads them). The JAX package takes its ``mxu``
+transposes only when W % 128 == 0; these take any width. The plain twins
+are :func:`wmajor_sweep_plain`, :func:`horizontal_sweeps_wmajor_plain`,
 :func:`transpose_to_wmajor_plain` and :func:`transpose_from_wmajor_plain`.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -23,7 +29,11 @@ from video3d_tpu_torch.ops.stereo import (SGBMParams, acc_dtype_for_params,
                                           sgm_sweep_dmajor)
 
 transpose_launches = 0  # B8b: calls that launched a CUDA transpose
-sweep_launches = 0  # B8c: calls that launched the CUDA W-major sweep
+sweep_launches = 0  # B8c: launches of the CUDA W-major sweeps, both entries
+# B8c's last launch: (blocks per multiprocessor, multiprocessors, blocks
+# launched, rounds of row tiles a block takes, rows a tile, shared bytes a
+# block), or None
+horizontal_plan = None
 
 TILE = 128  # the TPU's lane tile: HP is H rounded up to it
 
@@ -98,27 +108,73 @@ def wmajor_sweep_plain(cost_t: torch.Tensor, acc_t, p1: float, p2: float,
     return out.permute(0, 2, 1, 3).contiguous()
 
 
-def wmajor_sweep(cost_t: torch.Tensor, acc_t, p1: float, p2: float,
-                 reverse: bool,
-                 acc_dtype: torch.dtype = torch.int16) -> torch.Tensor:
-    """B8c: one horizontal sweep (left to right, or right to left with
-    ``reverse``) of the (B, D, W, HL) int16 or f32 cost, added into
-    ``acc_t`` (in place on the card) or into a fresh ``acc_dtype``
-    accumulator: int16 or f32 for an int16 cost, f32 for an f32 one."""
-    global sweep_launches
-    if acc_t is not None:
-        acc_dtype = acc_t.dtype
-    if not cost_t.is_cuda:
-        return wmajor_sweep_plain(cost_t, acc_t, p1, p2, reverse, acc_dtype)
+def horizontal_sweeps_wmajor_plain(cost_t: torch.Tensor, p1: float,
+                                   p2: float,
+                                   acc_dtype: torch.dtype = torch.int16
+                                   ) -> torch.Tensor:
+    """Plain B8c, both directions: the left-to-right sweep of the
+    (B, D, W, HL) cost into a fresh ``acc_dtype`` accumulator, then the
+    right-to-left one added to it (JAX ``_horizontal_passes_wmajor``
+    between its layout changes)."""
+    acc_t = wmajor_sweep_plain(cost_t, None, p1, p2, False, acc_dtype)
+    return wmajor_sweep_plain(cost_t, acc_t, p1, p2, True)
+
+
+def _sweep_args(cost_t: torch.Tensor, acc_dtype: torch.dtype, p1: float,
+                p2: float) -> tuple:
+    """Check what B8c takes; its penalties as the kernel reads them."""
     if (cost_t.dtype, acc_dtype) not in _SWEEP_TYPES:
         raise ValueError(f"wmajor sweep: no kernel for a {cost_t.dtype} cost "
                          f"into a {acc_dtype} accumulator")
     _build.require(cost_t, cost_t.dtype, 4, "wmajor cost")
+    if cost_t.shape[1] > 128:
+        raise ValueError("wmajor sweep: at most 128 disparities")
     if cost_t.dtype == torch.int16:
         p1, p2 = integral_penalties(p1, p2)
+    return float(p1), float(p2)
+
+
+def _launched(err: int, name: str, plan) -> None:
+    global sweep_launches, horizontal_plan
+    _build.check(err, name)
+    horizontal_plan = tuple(plan)
+    sweep_launches += 1
+
+
+def horizontal_sweeps_wmajor_kernel(cost_t: torch.Tensor, p1: float,
+                                    p2: float,
+                                    acc_dtype: torch.dtype = torch.int16
+                                    ) -> torch.Tensor:
+    """B8c, both directions: the sum of the left-to-right and the
+    right-to-left sweep of the (B, D, W, HL) int16 or f32 cost, as a new
+    ``acc_dtype`` volume (int16 or f32 for an int16 cost, f32 for an f32
+    one). One launch on the card."""
+    if not cost_t.is_cuda:
+        return horizontal_sweeps_wmajor_plain(cost_t, p1, p2, acc_dtype)
+    p1, p2 = _sweep_args(cost_t, acc_dtype, p1, p2)
     b, d, w, hl = cost_t.shape
-    if d > 128:
-        raise ValueError("wmajor sweep: at most 128 disparities")
+    acc_t = torch.empty(cost_t.shape, dtype=acc_dtype, device=cost_t.device)
+    plan = (ctypes.c_int * 6)()
+    _launched(_build.lib().v3d_wmajor_horizontal(
+        cost_t.data_ptr(), acc_t.data_ptr(), b, d, w, hl, p1, p2,
+        _CODE[cost_t.dtype], _CODE[acc_dtype], plan,
+        _build.stream_of(cost_t)), "v3d_wmajor_horizontal", plan)
+    return acc_t
+
+
+def wmajor_sweep(cost_t: torch.Tensor, acc_t, p1: float, p2: float,
+                 reverse: bool,
+                 acc_dtype: torch.dtype = torch.int16) -> torch.Tensor:
+    """B8c, one direction: a horizontal sweep (left to right, or right to
+    left with ``reverse``) of the (B, D, W, HL) int16 or f32 cost, added
+    into ``acc_t`` (in place on the card) or into a fresh ``acc_dtype``
+    accumulator: int16 or f32 for an int16 cost, f32 for an f32 one."""
+    if acc_t is not None:
+        acc_dtype = acc_t.dtype
+    if not cost_t.is_cuda:
+        return wmajor_sweep_plain(cost_t, acc_t, p1, p2, reverse, acc_dtype)
+    p1, p2 = _sweep_args(cost_t, acc_dtype, p1, p2)
+    b, d, w, hl = cost_t.shape
     if acc_t is None:
         acc_t = torch.empty(cost_t.shape, dtype=acc_dtype,
                             device=cost_t.device)
@@ -128,11 +184,11 @@ def wmajor_sweep(cost_t: torch.Tensor, acc_t, p1: float, p2: float,
         if acc_t.shape != cost_t.shape:
             raise ValueError("wmajor sweep: acc and cost shapes differ")
         acc_in = acc_t.data_ptr()
-    _build.check(_build.lib().v3d_wmajor_sweep(
-        cost_t.data_ptr(), acc_in, acc_t.data_ptr(), b, d, w, hl, float(p1),
-        float(p2), int(reverse), _CODE[cost_t.dtype], _CODE[acc_dtype],
-        _build.stream_of(cost_t)), "v3d_wmajor_sweep")
-    sweep_launches += 1
+    plan = (ctypes.c_int * 6)()
+    _launched(_build.lib().v3d_wmajor_sweep(
+        cost_t.data_ptr(), acc_in, acc_t.data_ptr(), b, d, w, hl, p1, p2,
+        int(reverse), _CODE[cost_t.dtype], _CODE[acc_dtype], plan,
+        _build.stream_of(cost_t)), "v3d_wmajor_sweep", plan)
     return acc_t
 
 
@@ -141,8 +197,8 @@ def horizontal_sweeps_wmajor(cost: torch.Tensor, params: SGBMParams,
     """Both horizontal sweeps of the (B, H, W, D) int16 cost on the W-major
     layout (JAX ``_horizontal_passes_wmajor``): into (B, D, W, H) by
     ``permute().contiguous()`` for ``route="xla"``, into (B, D, W, HP) by
-    B8b for ``"mxu"``, two B8c sweeps, and back. Equal to B2's
-    :func:`video3d_tpu_torch.kernels.sgm.horizontal_sweeps`."""
+    B8b for ``"mxu"``, both sweeps in one B8c launch, and back. Equal to
+    B2's :func:`video3d_tpu_torch.kernels.sgm.horizontal_sweeps`."""
     if route not in ("xla", "mxu"):
         raise ValueError(f"W-major route must be xla or mxu: {route!r}")
     check_integer_totals(params)
@@ -152,9 +208,8 @@ def horizontal_sweeps_wmajor(cost: torch.Tensor, params: SGBMParams,
         cost_t = transpose_to_wmajor(cost)
     else:
         cost_t = cost.permute(0, 3, 2, 1).contiguous()  # (B, D, W, H)
-    acc_t = wmajor_sweep(cost_t, None, params.p1, params.p2, False,
-                         acc_dtype)
-    acc_t = wmajor_sweep(cost_t, acc_t, params.p1, params.p2, True)
+    acc_t = horizontal_sweeps_wmajor_kernel(cost_t, params.p1, params.p2,
+                                            acc_dtype)
     if route == "mxu":
         return transpose_from_wmajor(acc_t, h)
     return acc_t.permute(0, 3, 2, 1).contiguous()

@@ -544,6 +544,18 @@ def make_guidance_fn(model: DPTDepthModel, infer_size: int = 384):
     return GuidanceFn(apply_fn, model)
 
 
+def _loader_device(device, name: str) -> torch.device:
+    """The device a DPT loader puts the model on: ``cuda`` unless the caller
+    names another; raises where CUDA is asked for and missing (no fallback
+    to the CPU)."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{name}: CUDA is not available; pass device=\"cpu\" to run on "
+            f"the CPU")
+    return device
+
+
 def random_dpt_guidance(cfg: Optional[DPTConfig] = None, seed: int = 0,
                         dtype: torch.dtype = torch.bfloat16,
                         infer_size: int = 384, device=None):
@@ -555,10 +567,11 @@ def random_dpt_guidance(cfg: Optional[DPTConfig] = None, seed: int = 0,
     normal(0, 1/sqrt(fan_in)) for dense and conv kernels, zero biases,
     unit layer-norm scales, a zero cls token and normal(0, 0.02) position
     embeddings -- the scheme of flax's init, but not its values, which come
-    from another generator (and differ between CPU and CUDA).
+    from another generator (and differ between CPU and CUDA). ``device``
+    defaults to ``cuda``.
     """
+    device = _loader_device(device, "random_dpt_guidance")
     cfg = cfg or DPTConfig.dpt_large()
-    device = torch.device("cpu" if device is None else device)
     model = _skeleton(cfg).to_empty(device=device)
     gen = torch.Generator(device=device).manual_seed(int(seed))
     with torch.no_grad():
@@ -583,8 +596,10 @@ def load_dpt_safetensors(model_dir: str, dtype: torch.dtype = torch.bfloat16,
     """DPT guidance from a local HF checkpoint directory (``config.json`` +
     ``*.safetensors``); weight names are HF ``DPTForDepthEstimation``'s.
     Needs the ``safetensors`` package (imported here, so the module
-    imports without it)."""
+    imports without it). ``device`` defaults to ``cuda``."""
     from safetensors.torch import load_file
+
+    device = _loader_device(device, "load_dpt_safetensors")
 
     d = Path(model_dir)
     cfg = DPTConfig.from_hf(json.loads((d / "config.json").read_text()))
@@ -600,7 +615,7 @@ def load_dpt_safetensors(model_dir: str, dtype: torch.dtype = torch.bfloat16,
 def _guidance_from_hf(sd, cfg, dtype, infer_size, device):
     model = DPTDepthModel(cfg)
     model.load_state_dict(hf_state_dict_to_port(sd, cfg))
-    model = model.to(device=torch.device("cpu" if device is None else device),
+    model = model.to(device=_loader_device(device, "DPT guidance"),
                      dtype=dtype)
     return make_guidance_fn(model, infer_size=infer_size)
 
@@ -611,7 +626,9 @@ def load_dpt_guidance(checkpoint: str = "Intel/dpt-large",
     """DPT guidance from a local checkpoint: a directory holding
     ``*.safetensors`` goes to :func:`load_dpt_safetensors`, anything else
     to ``transformers`` with ``local_files_only``. Raises when neither can
-    load it; the depth stage then falls back to stereo-only."""
+    load it; the depth stage then falls back to stereo-only. ``device``
+    defaults to ``cuda``."""
+    device = _loader_device(device, "load_dpt_guidance")
     p = Path(checkpoint)
     if p.is_dir() and any(p.glob("*.safetensors")):
         return load_dpt_safetensors(checkpoint, dtype=dtype,

@@ -1,4 +1,4 @@
-"""Small-shape checks of kernels B1-B6 against their plain twins.
+"""Small-shape checks of kernels B1-B6 and B8c against their plain twins.
 
 The shapes stress what the 1080p run at D = 64 does not: widths that are
 no multiple of a block's strip of columns, heights shorter than B1's ring
@@ -15,7 +15,14 @@ pyramid of guides from 5x7 to 540x960 at 3 and 4 levels (``r_lvl`` 3 to
 9, coarse sizes odd and even, 2x2 levels whose upsample is the
 identity); B5's EMA step runs guides from 5x7 to 540x960 at 2x and 4x
 (and a non-integer ratio), ``max_warp`` 8 and 16, the depth gate on and
-off; both must give the same bits on a second run. ``chip_smoke.py``
+off; both must give the same bits on a second run. B8c runs its
+two-direction entry and its one-direction entry (forward and reverse, with
+and without an accumulator to add to) at D from 16 to 128 (one lane-run
+to four, and ones no run divides), image rows HL from 1 to 1152 (no
+multiple of a tile, and ones no 16-byte copy divides), widths from 1 to
+257 (below and around twice its ring of positions), batches of 1 and 3,
+and all three type pairs, the f32 cost non-integer; each case bit-equal
+to the twin and to a second run. ``chip_smoke.py``
 and ``tests/test_torch_card.py`` both run them on the card; the functions
 raise ``AssertionError`` on a mismatch.
 """
@@ -25,7 +32,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from video3d_tpu_torch.kernels import costvol, flowmatch, sgm, speckle, warp
+from video3d_tpu_torch.kernels import (costvol, flowmatch, sgm, speckle, warp,
+                                       wmajor)
 from video3d_tpu_torch.ops import flow
 from video3d_tpu_torch.ops.image import resize2d
 from video3d_tpu_torch.ops.speckle import speckle_filter_device
@@ -101,6 +109,39 @@ B4_CASES = [
 ]
 
 
+# (batch, num_disparities, width, image rows HL, cost and accumulator type,
+# entry): "both" is the two-direction entry, "fwd" / "rev" the one-direction
+# one, "+acc" adding into a given accumulator
+B8C_CASES = [
+    (1, 64, 90, 1152, "i16/i16", "both"),    # the mxu route's padded rows
+    (3, 16, 1, 1, "i16/i16", "both"),
+    (1, 32, 2, 7, "i16/f32", "both"),
+    (3, 35, 7, 40, "f32/f32", "both"),
+    (1, 48, 8, 70, "i16/i16", "both"),
+    (1, 70, 9, 130, "i16/f32", "both"),
+    (3, 128, 257, 40, "i16/i16", "both"),
+    (1, 64, 257, 70, "f32/f32", "both"),
+    (1, 16, 90, 130, "i16/f32", "both"),
+    (3, 64, 9, 7, "i16/i16", "both"),
+    (1, 128, 8, 130, "f32/f32", "both"),
+    (1, 35, 257, 1152, "i16/f32", "both"),
+    (1, 64, 90, 70, "i16/i16", "fwd"),
+    (1, 64, 90, 70, "i16/i16", "rev+acc"),
+    (1, 64, 90, 70, "i16/f32", "rev"),
+    (1, 64, 90, 70, "i16/f32", "fwd+acc"),
+    (1, 64, 90, 70, "f32/f32", "fwd"),
+    (1, 64, 90, 70, "f32/f32", "rev+acc"),
+    (3, 35, 9, 7, "i16/f32", "rev+acc"),
+    (1, 128, 2, 130, "f32/f32", "fwd+acc"),
+    (3, 16, 257, 40, "i16/i16", "rev"),
+    (1, 70, 1, 1, "f32/f32", "fwd"),
+    (1, 48, 7, 1152, "i16/f32", "fwd+acc"),
+    (3, 32, 8, 70, "f32/f32", "rev+acc"),
+    (1, 128, 257, 40, "i16/i16", "fwd+acc"),
+]
+_B8C_TYPES = {"i16": torch.int16, "f32": torch.float32}
+
+
 def gray_pair(b: int, h: int, w: int, shift: int, seed: int, device):
     """(b, h, w) f32 eyes of one random texture, ``shift`` pixels apart."""
     r = np.random.default_rng(seed)
@@ -168,6 +209,48 @@ def check_b2(device, b, h, w, d, paths, seed=9) -> None:
     assert acc.shape == cost.shape, what
     err = (acc.double() - want.double()).abs().max().item()
     assert err == 0, f"{what}: max |err| {err}"
+
+
+def check_b8c(device, b, d, w, hl, types, entry, seed=13) -> None:
+    """B8c on the card, one launch, equals its twin bit for bit and a second
+    run of itself: an int16 cost of B1's range with whole penalties, or a
+    non-integer f32 cost with non-integer ones."""
+    cost_dt, acc_dt = (_B8C_TYPES[t] for t in types.split("/"))
+    r = np.random.default_rng(seed)
+    if cost_dt == torch.int16:
+        cost = r.integers(0, 1551, (b, d, w, hl)).astype(np.int16)
+        p1, p2, acc_hi = 600.0, 2400.0, 10000
+    else:
+        cost = r.uniform(0, 100, (b, d, w, hl)).astype(np.float32)
+        p1, p2, acc_hi = 7.25, 30.5, 1000
+    cost = torch.from_numpy(cost).to(device)
+    acc = None
+    if entry.endswith("+acc"):
+        a = r.uniform(0, acc_hi, cost.shape)
+        acc = torch.from_numpy(a if acc_dt == torch.float32 and
+                               cost_dt == torch.float32 else a.round()).to(
+            device, acc_dt)
+    if entry == "both":
+        def run():
+            return wmajor.horizontal_sweeps_wmajor_kernel(cost, p1, p2,
+                                                          acc_dt)
+        want = wmajor.horizontal_sweeps_wmajor_plain(cost, p1, p2, acc_dt)
+    else:
+        reverse = entry.startswith("rev")
+
+        def run():
+            return wmajor.wmajor_sweep(cost, None if acc is None else
+                                       acc.clone(), p1, p2, reverse, acc_dt)
+        want = wmajor.wmajor_sweep_plain(cost, acc, p1, p2, reverse, acc_dt)
+    n = wmajor.sweep_launches
+    got, again = run(), run()
+    assert wmajor.sweep_launches == n + 2
+    torch.cuda.synchronize(device)
+    what = f"B8c {entry} at {(b, d, w, hl)} {types}"
+    assert got.dtype == acc_dt and got.shape == cost.shape, what
+    assert torch.equal(got, again), f"{what}: runs differ"
+    err = (got.double() - want.double()).abs().max().item()
+    assert torch.equal(got, want), f"{what}: max |err| {err}"
 
 
 def speckle_map(b: int, h: int, w: int, fill: str, seed: int, device):

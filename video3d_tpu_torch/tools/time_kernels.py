@@ -1,11 +1,14 @@
-"""Times of kernels B2 and B4 at 1080p over batch sizes and band counts.
+"""Times of kernels B2, B8c and B4 at 1080p over batch sizes and band counts.
 
 What ``chip_smoke.py`` does not time: B2 (both horizontal sweeps, int16
-and f32 accumulator) and B4 (speckle vote at the default 3 bands, and at
-9 and 65 bands, where it counts with per-column histograms) at batches of
-1, 2, 4 and 8 frames of 1920x1080, D=64, in ms per frame (CUDA events over
-back-to-back calls), with B2's launch plan. Prints the card's name and
-power limit first.
+and f32 accumulator), B8c (both W-major horizontal sweeps on the
+(B, D, W, H) volume, the same accumulators, in one launch and as a
+forward and a reverse one-direction launch) and B4 (speckle vote
+at the default 3 bands, and at 9 and 65 bands, where it counts with
+per-column histograms) at batches of 1, 2, 4 and 8 frames of 1920x1080,
+D=64, in ms per frame (CUDA events over back-to-back calls), B2's and
+B8c's launch plans beside them. Prints the card's name and power limit
+first.
 
 Usage: ``python -m video3d_tpu_torch.tools.time_kernels [batch ...]`` on a
 CUDA card.
@@ -18,8 +21,9 @@ import sys
 
 import torch
 
-from video3d_tpu_torch.kernels import costvol, sgm, speckle
-from video3d_tpu_torch.ops.stereo import INVALID, SGBMParams
+from video3d_tpu_torch.kernels import costvol, sgm, speckle, wmajor
+from video3d_tpu_torch.ops.stereo import (INVALID, SGBMParams,
+                                          acc_dtype_for_params)
 from video3d_tpu_torch.stages.depth import gray_pair
 from video3d_tpu_torch.tools.profile_stage import sbs_batch
 
@@ -55,6 +59,29 @@ def main(argv=None) -> int:
             ms = cuda_ms(lambda: sgm.horizontal_sweeps(cost, pp)) / nb
             print(f"B2 {name} acc, batch {nb}: {ms:.4f} ms/frame; blocks "
                   f"per SM, SMs, blocks, rounds = {sgm.horizontal_plan}")
+        cost_t = cost.permute(0, 3, 2, 1).contiguous()  # (B, D, W, H)
+        # absent from trees before the two-direction entry, so the tool
+        # times those too (their one-direction pair only)
+        both = getattr(wmajor, "horizontal_sweeps_wmajor_kernel", None)
+        for name, pp in (("int16", p), ("f32", p8)):
+            adt = acc_dtype_for_params(cost.dtype, pp)
+            acc_t = torch.empty(cost_t.shape, dtype=adt, device="cuda")
+
+            def pair():
+                wmajor.wmajor_sweep(cost_t, None, pp.p1, pp.p2, False, adt)
+                wmajor.wmajor_sweep(cost_t, acc_t, pp.p1, pp.p2, True)
+
+            ms = cuda_ms(pair, 3) / nb
+            print(f"B8c {name} acc, batch {nb}, forward + reverse "
+                  f"one-direction launches: {ms:.4f} ms/frame")
+            if both is not None:
+                ms = cuda_ms(lambda: both(cost_t, pp.p1, pp.p2, adt)) / nb
+                print(f"B8c {name} acc, batch {nb}, both directions in one "
+                      f"launch: {ms:.4f} ms/frame; blocks per SM, SMs, "
+                      f"blocks, rounds, rows a tile, shared bytes = "
+                      f"{wmajor.horizontal_plan}")
+            del acc_t
+        del cost_t
         disp = sgm.vertical_sweeps_wta(cost, sgm.horizontal_sweeps(cost, p),
                                        p)
         for max_diff in (32.0, 8.0, 1.0):
