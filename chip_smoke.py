@@ -60,11 +60,23 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    valid fraction, batch 0 against the all-twin path); both W-major
    horizontal routes (``horizontal_route`` xla and mxu) on one batch of 8
    at 5 and 8 paths, bit-equal to the legacy route; B8a through the public
-   ``sgm_aggregate_pallas``; and the int16 probe's own run;
+   ``sgm_aggregate_pallas``; the int16 probe's own run; the CREStereo
+   hybrid, the shipped default (``StereoDepthExtractor`` with no guidance
+   argument, the bundled weights; fails if it degrades to stereo-only;
+   one forward of 2 keyframes and B1-B4 once per batch of 8, batch 0 step
+   by step and against the twins, the median; the bf16 model on the card
+   against the f32 model on the CPU on one 1080p pair); and the upscale
+   (``adaptive_upsample``, ``guided_upsample`` gray and color and
+   ``plain_upsample`` on a resident batch of 4 from 1080x1920 to
+   2160x3840, each against its CPU run; ``DepthUpscaler`` on the CREStereo
+   maps and a synthetic 4K clip, to PNG16 and to mp4);
 5. times the stage's frames/s with and without the flow smoother, with
    DPT guidance at K=4 and K=1, in MODE_HH and on each route, the DPT-large
-   forward per keyframe, and the smoother alone per frame, with its
-   device operations per frame counted in a ``torch.profiler`` trace.
+   forward per keyframe, the CREStereo hybrid at K=4 and K=1, one
+   CREStereo keyframe's forward beside its FLOP bound, each upsample per
+   4K frame (median and spread over repeats), and the smoother alone per
+   frame, with its device operations per frame counted in a
+   ``torch.profiler`` trace.
 
 The second-to-last line is a JSON object of the kernels, preceded by the
 card's name and power limit; the last line is
@@ -159,6 +171,51 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def event_times(fn, reps: int) -> list:
+    """Device milliseconds of each of ``reps`` calls of ``fn`` (CUDA events
+    around each call, synchronised), after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        times.append(timed(fn)[1])
+    return times
+
+
+def profile_kernels(fn, reps: int):
+    """(device operations per call, {kernel name: (launches per call,
+    device ms per call)}) from a ``torch.profiler`` trace of ``reps`` calls
+    of ``fn`` after a warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    per = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n, us = per.get(e.name, (0, 0.0))
+            per[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    n_dev = sum(n for n, _ in per.values())
+    return n_dev / reps, {k: (n / reps, us / 1e3 / reps)
+                          for k, (n, us) in per.items()}
+
+
+def print_top(per: dict, top: int = 8) -> None:
+    """The ``top`` kernels of :func:`profile_kernels` by device time."""
+    for name, (n, ms) in sorted(per.items(), key=lambda kv: -kv[1][1])[:top]:
+        print(f"  {ms:8.4f} ms  {n:5.1f} x  {name[:100]}")
+
+
+def spread(times) -> str:
+    """'median (min-max)' of a list of milliseconds."""
+    return (f"{float(np.median(times)):.3f} ms (spread "
+            f"{min(times):.3f}-{max(times):.3f}, {len(times)} runs)")
+
+
 def device_ms(fn, reps: int):
     """Mean device milliseconds per call of ``fn``: the kernels' summed
     time in a ``torch.profiler`` trace of ``reps`` calls, or None when the
@@ -243,7 +300,12 @@ def main() -> int:
     from video3d_tpu_torch.kernels import (_build, attention, costvol,
                                            flowmatch, sgm, speckle, warp,
                                            wmajor)
+    from video3d_tpu_torch.core import VideoWriter
+    from video3d_tpu_torch.models.crestereo import (BUNDLED_WEIGHTS,
+                                                    conv_flops,
+                                                    load_crestereo_guidance)
     from video3d_tpu_torch.models.dpt import random_dpt_guidance
+    from video3d_tpu_torch.ops import guided
     from video3d_tpu_torch.ops.attention import attention_plain
     from video3d_tpu_torch.ops.fill import fill_holes
     from video3d_tpu_torch.ops.flow import (FlowEMAParams, ema_tail_plain,
@@ -263,6 +325,7 @@ def main() -> int:
                                                 disparity_to_uint16,
                                                 gray_pair, guidance_blend,
                                                 rgb_eyes)
+    from video3d_tpu_torch.stages.upscale import DepthUpscaler
     from video3d_tpu_torch.tools import card_checks, probe_i16
     from video3d_tpu_torch.tools.profile_stage import sbs_batch
 
@@ -1224,6 +1287,189 @@ def main() -> int:
         check(probe_i16.main([]) == 0, "the int16 probe failed")
         rows["P"]["launches"] = ran(counts(), ("P",), "the probe")[0]
 
+        # -- 4h. the CREStereo hybrid, the shipped default ------------------
+        phase("4h. the CREStereo hybrid (the default)")
+        # no guidance argument: the stage's default, on the bundled weights
+        cext = StereoDepthExtractor(work_dir=str(work), batch_size=8)
+        t0 = time.perf_counter()
+        cext.load_model()
+        check(cext.guidance == "crestereo" and cext._guidance_fn is not None
+              and cext.model_checkpoint == str(BUNDLED_WEIGHTS),
+              f"the default guidance did not load: {cext.guidance} from "
+              f"{cext.model_checkpoint}")
+        cfn = cext._guidance_fn
+        print(f"CREStereo: {sum(t.numel() for t in cfn.module.parameters())}"
+              f" parameters from {Path(cext.model_checkpoint).name} in "
+              f"{time.perf_counter() - t0:.1f} s, convs in "
+              f"{cfn.module.cfg.dtype}, on {next(cfn.module.parameters()).device}")
+        forwards = []
+        hook = cfn.module.register_forward_hook(
+            lambda mod, args, out: forwards.append(args[0].shape[0]))
+        cbatches = [(sbs_frames(8, SEED + 60 + i), 8) for i in range(2)]
+        ccache = work / "depth_crestereo"
+        counts(reset=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n_cre = cext._run_batches(cbatches, ccache)
+        torch.cuda.synchronize()
+        cre_s = time.perf_counter() - t0
+        hook.remove()
+        cc = counts()
+        claunches = [cc[k] for k in ("B1", "B2", "B3", "B4", "B5", "B6",
+                                     "B7")]
+        print(f"CREStereo hybrid: {n_cre} frames in batches of 8, K="
+              f"{cext.guidance_every}, fill {cext.fill_holes}, blend "
+              f"{cext.blend}, {cre_s:.3f} s incl. first-batch warm-up and "
+              f"PNG writes; launches B1..B7 = {claunches}; guidance "
+              f"forwards {len(forwards)} of {forwards} keyframes")
+        check(cext.guidance == "crestereo",
+              f"the run degraded to {cext.guidance}")
+        check(n_cre == 16, f"wrote {n_cre} frames")
+        check(claunches == [2, 2, 2, 2, 0, 0, 0],
+              f"CREStereo hybrid launches {claunches}")
+        check(forwards == [2, 2], f"guidance forwards {forwards}, expected "
+              f"one of 2 keyframes a batch (K=4)")
+        # the default is now the system's main path: B1-B4's launches
+        for key, k in zip(("B1", "B2", "B3", "B4"), claunches):
+            rows[key]["launches"] = rows[key + "@8"]["launches"] = k
+        rows["B1-i16"]["launches"] = claunches[0]
+        cmaps = read_maps(ccache, n_cre)
+        disp_px = cmaps.astype(np.float64) * (p.num_disparities / 65535.0)
+        med = float(np.median(disp_px))
+        print(f"CREStereo hybrid: median disparity {med:.4f} px (shift "
+              f"{2 * SHIFT_EYE} px), {float((cmaps > 0).mean()):.4f} of "
+              f"pixels > 0")
+        check(abs(med - 2 * SHIFT_EYE) <= 0.5, f"CREStereo median {med}")
+
+        # batch 0 step by step on the kernels
+        x0 = torch.from_numpy(cbatches[0][0]).to(dev)
+        left, right = rgb_eyes(x0)
+        disp, conf = sgbm_disparity(rgb_to_gray(left).contiguous(),
+                                    rgb_to_gray(right).contiguous(), p,
+                                    return_margin=True)
+        filled = fill_holes(disp, float(p.min_disparity - 1))
+        guide = cfn(left[::4], right[::4])
+        check(guide.shape == (2, H, W_SBS) and bool(torch.isfinite(guide).all()),
+              f"CREStereo guide {tuple(guide.shape)}")
+        gmed = float(guide.median().item())
+        print(f"CREStereo guide alone: median {gmed:.4f} px")
+        blended = guidance_blend(filled, conf, left, right, cfn, p,
+                                 guidance_every=4)
+        check(bool(torch.isfinite(blended).all()), "CREStereo blend not finite")
+        step = disparity_to_uint16(blended, p.num_disparities).cpu().to(
+            torch.int32).numpy()
+        d = np.abs(step - cmaps[:8].astype(np.int32))
+        print(f"CREStereo batch 0 step by step vs the run: max |diff| "
+              f"{int(d.max())} uint16 units")
+        check(int(d.max()) <= 1, "CREStereo batch 0 differs from its steps")
+
+        # batch 0 with B1-B4 swapped for their twins
+        with twins():
+            counts(reset=True)
+            tmaps = depth_batch_pipeline(
+                x0, guidance_fn=cfn, guidance_every=4,
+                fill_holes=True).cpu().to(torch.int32).numpy()
+            check(not any(counts().values()),
+                  f"twin run launched {counts()}")
+        d = np.abs(tmaps - cmaps[:8].astype(np.int32))
+        within = float((d <= 64).mean())
+        print(f"CREStereo batch 0 vs the twins: {float((d == 0).mean()):.6f} "
+              f"of pixels equal, {within:.6f} within 64 uint16 units (1/16 "
+              f"px), max |diff| {int(d.max())}")
+        check(within >= 0.99, f"CREStereo path vs twins: {within} within 64")
+
+        # the bf16 model on the card against the f32 model on the CPU, one
+        # 1080p keyframe pair (half-resolution inference)
+        cpu_fn = load_crestereo_guidance(dtype=torch.float32, device="cpu")
+        t0 = time.perf_counter()
+        g_cpu = cpu_fn(left[:1].cpu(), right[:1].cpu())
+        cpu_s = time.perf_counter() - t0
+        g_card = cfn(left[:1], right[:1]).cpu()
+        d = (g_card - g_cpu).abs()
+        frac = float((d <= 0.5).float().mean().item())
+        dmed = float(d.median().item())
+        print(f"CREStereo bf16 on the card vs f32 on the CPU ({cpu_s:.1f} s), "
+              f"one 1080p pair: {frac:.6f} of pixels within 0.5 px (bound "
+              f">= 0.99), median |diff| {dmed:.4f} px (bound <= 0.1), max "
+              f"{float(d.max().item()):.4f}; medians {float(g_card.median()):.4f}"
+              f" / {float(g_cpu.median()):.4f} px")
+        check(frac >= 0.99 and dmed <= 0.1,
+              "CREStereo bf16 on the card differs from f32 on the CPU")
+        del x0, disp, conf, filled, blended, guide, g_cpu, g_card, cpu_fn
+        torch.cuda.empty_cache()
+
+        # -- 4i. the upscale ---------------------------------------------------
+        phase("4i. the upscale")
+        # a resident batch of 4: the CREStereo maps (1080x1920 uint16) to
+        # 2160x3840, guided by the left eyes at 2x (nearest), uint16 out
+        H4, W4 = 2 * H, 2 * W_SBS
+        up_depth = torch.from_numpy(cmaps[:4]).to(dev)
+        up_guide = left[:4].round().clamp(0, 255).to(torch.uint8)
+        up_guide = up_guide.repeat_interleave(2, 1).repeat_interleave(2, 2)
+        del left, right
+        up_ops = {
+            "adaptive": lambda d, g: guided.adaptive_upsample(
+                d, g, H4, W4, out_dtype="uint16"),
+            "guided gray": lambda d, g: guided.guided_upsample(
+                d, g, H4, W4, out_dtype="uint16"),
+            "guided color": lambda d, g: guided.guided_upsample(
+                d, g, H4, W4, guide_mode="color", out_dtype="uint16"),
+            "plain": lambda d, g: guided.plain_upsample(
+                d, H4, W4, out_dtype="uint16"),
+        }
+        counts(reset=True)
+        for name, fn in up_ops.items():
+            got = fn(up_depth, up_guide).cpu().to(torch.int32)
+            t0 = time.perf_counter()
+            want = fn(up_depth.cpu(), up_guide.cpu()).to(torch.int32)
+            cpu_s = time.perf_counter() - t0
+            check(got.shape == (4, H4, W4), f"{name} shape {tuple(got.shape)}")
+            d = (got - want).abs()
+            frac = float((d <= 1).float().mean().item())
+            print(f"upscale {name} 4x1080x1920 -> 2160x3840 on the card vs "
+                  f"f32 on the CPU ({cpu_s:.1f} s): max |diff| "
+                  f"{int(d.max().item())} uint16 units (bound 2), "
+                  f"{frac:.6f} within 1 (bound >= 0.999), "
+                  f"{float((d == 0).float().mean().item()):.6f} equal")
+            check(int(d.max().item()) <= 2 and frac >= 0.999,
+                  f"upscale {name} differs from its CPU run")
+        check(not any(counts().values()), f"the upscale launched {counts()}")
+        del got, want, d
+
+        # the stage: a synthetic 3840x2160 guide clip written on the card's
+        # host, the CREStereo maps, once to PNG16 and once to mp4
+        clip4k = work / "guide_4k.mp4"
+        with VideoWriter(str(clip4k), W4, H4, 24.0, preset="ultrafast") as vw:
+            for f in up_guide.cpu().numpy():
+                vw.write(f)
+            for f in up_guide.flip(2).cpu().numpy():
+                vw.write(f)
+        upscaler = DepthUpscaler(work_dir=str(work / "up"), batch_size=4,
+                                 preset="veryfast")
+        t0 = time.perf_counter()
+        out_png = upscaler.process_depth_upscaling(str(ccache), str(clip4k),
+                                                   png16_out=True)
+        png_s = time.perf_counter() - t0
+        ups = [load_depth_png16(f) for f in list_depth_frames(out_png)]
+        check(len(ups) == 16 and ups[0].shape == (H4, W4)
+              and ups[0].dtype == np.uint16, f"upscaled PNGs {len(ups)}")
+        check(out_png.name == f"depth_4k_{ccache.name}_adaptive",
+              f"upscale output {out_png.name}")
+        print(f"DepthUpscaler (adaptive, png16_out): 16 frames in "
+              f"{png_s:.2f} s incl. decode and PNG writes -> {out_png.name}, "
+              f"writer {upscaler.writer_backend}")
+        t0 = time.perf_counter()
+        out_mp4 = upscaler.process_depth_upscaling(str(ccache), str(clip4k),
+                                                   max_frames=8)
+        mp4_s = time.perf_counter() - t0
+        check(out_mp4.is_file() and out_mp4.stat().st_size > 0,
+              f"no mp4 at {out_mp4}")
+        print(f"DepthUpscaler (adaptive, mp4): 8 frames in {mp4_s:.2f} s "
+              f"-> {out_mp4.name} ({out_mp4.stat().st_size} bytes), writer "
+              f"backend {upscaler.writer_backend}")
+        del ups
+        torch.cuda.empty_cache()
+
         # -- 5. stage frames/s on the device (no PNG writes) ---------------
         phase("5. timings")
         xb = torch.from_numpy(batches[1][0]).to(dev)
@@ -1291,6 +1537,59 @@ def main() -> int:
               f"{card}")
         del xh, x384, lh
 
+        # the CREStereo hybrid: the stage at K=4 and K=1, one keyframe's
+        # forward (half resolution, bf16) and the guidance fn with its
+        # resizes, each over repeats
+        xc = torch.from_numpy(cbatches[1][0]).to(dev)
+        ms_stereo = spread(event_times(lambda: depth_batch_pipeline(xc), 5))
+        for kev in (4, 1):
+            t = event_times(lambda: depth_batch_pipeline(
+                xc, guidance_fn=cfn, guidance_every=kev, fill_holes=True), 5)
+            print(f"CREStereo hybrid stage K={kev}: {spread(t)} per batch of "
+                  f"8 = {8000.0 / float(np.median(t)):.2f} frames/s (device "
+                  f"time; stereo-only on the same batch {ms_stereo}) on "
+                  f"{card}")
+        lc, rc = rgb_eyes(xc[:1])
+        hs, ws = H // 2, W_SBS // 2
+        ls, rs = (resize2d(e.movedim(-1, 1), hs, ws, "bilinear").movedim(1, -1)
+                  for e in (lc, rc))
+        with torch.no_grad():
+            t_fwd = event_times(lambda: cfn.module(ls, rs), 10)
+            dev_fwd = device_ms(lambda: cfn.module(ls, rs), 5)
+        t_gfn = event_times(lambda: cfn(lc, rc), 10)
+        flops = conv_flops(cfn.module.cfg, hs, ws)
+        b_ms, b_by = bound(2 * hs * ws * 3 * 4 + H * W_SBS * 4, flops,
+                           "bf16")
+        print(f"CREStereo forward, one keyframe at {hs}x{ws} (bf16 convs): "
+              f"{spread(t_fwd)} CUDA events, device time (torch.profiler) "
+              + (f"{dev_fwd:.3f} ms" if dev_fwd else "not measured")
+              + f"; guidance fn incl. resizes at 1080x1920 {spread(t_gfn)} "
+              f"on {card}")
+        print(f"CREStereo forward: {flops / 1e9:.2f} GFLOP of convs a "
+              f"keyframe (models/crestereo.py conv_flops), bound "
+              f"{b_ms:.4f} ms ({b_by}, 989 TFLOP/s bf16)")
+        with torch.no_grad():
+            n_ops, per = profile_kernels(lambda: cfn.module(ls, rs), 3)
+        print(f"CREStereo forward (torch.profiler): {n_ops:.0f} device "
+              f"operations a keyframe, "
+              f"{sum(ms for _, ms in per.values()):.3f} ms; by device time:")
+        print_top(per)
+        del xc, lc, rc, ls, rs
+
+        # adaptive_upsample per 4K frame on the resident batch of 4
+        for name in ("adaptive", "guided gray", "guided color", "plain"):
+            t = event_times(lambda: up_ops[name](up_depth, up_guide), 5)
+            print(f"upscale {name}: {spread(t)} per batch of 4 = "
+                  f"{float(np.median(t)) / 4:.3f} ms per 2160x3840 frame on "
+                  f"{card}")
+        n_ops, per = profile_kernels(
+            lambda: up_ops["adaptive"](up_depth, up_guide), 2)
+        print(f"upscale adaptive (torch.profiler): {n_ops:.0f} device "
+              f"operations a batch of 4, "
+              f"{sum(ms for _, ms in per.values()):.3f} ms; by device time:")
+        print_top(per)
+        del up_depth, up_guide
+
         # the smoother alone, shaped as the JAX package's bench_smooth: T=8
         # uint16 1080p depth, 270x480 guide, one scan from frame 0
         srng = np.random.default_rng(2)
@@ -1309,20 +1608,11 @@ def main() -> int:
               f"{host_ms:.3f} ms/frame host clock (T=8, 1080p depth, "
               f"270x480 guide) = {1000.0 / ms_s:.2f} frames/s on {card}")
         # the smoother's launches per frame, counted in a profiler trace
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            flow_ema_scan(None, sd, sg, FlowEMAParams())
-            torch.cuda.synchronize()
-        per_kernel = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                per_kernel[e.name] = per_kernel.get(e.name, 0) + 1
-        n_dev = sum(per_kernel.values())
-        print(f"smoother launches (torch.profiler): {n_dev} device operations "
-              f"for 8 frames = {n_dev / 8:.2f} per frame on {card}")
-        for name, k in sorted(per_kernel.items(), key=lambda kv: -kv[1]):
+        n_dev, per = profile_kernels(
+            lambda: flow_ema_scan(None, sd, sg, FlowEMAParams()), 1)
+        print(f"smoother launches (torch.profiler): {n_dev:.0f} device "
+              f"operations for 8 frames = {n_dev / 8:.2f} per frame on {card}")
+        for name, (k, _) in sorted(per.items(), key=lambda kv: -kv[1][0]):
             print(f"  {k / 8:6.2f} per frame  {name[:100]}")
         check(0 < n_dev <= 20 * 8,
               f"the smoother ran {n_dev / 8:.2f} device operations a frame, "

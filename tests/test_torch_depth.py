@@ -175,7 +175,8 @@ def test_process_video_sbs_matches_jax(tmp_path, clip):
         work_dir=str(tmp_path / "jax"), batch_size=2, guidance="none",
         params=jp).process_video_sbs(str(video))
     ext = tdepth.StereoDepthExtractor(work_dir=str(tmp_path / "torch"),
-                                      batch_size=2, params=p, device="cpu")
+                                      batch_size=2, params=p, device="cpu",
+                                      guidance="none")
     tcache = ext.process_video_sbs(str(video))
     jnames = [f.name for f in list_depth_frames(jcache)]
     tnames = [f.name for f in list_depth_frames(tcache)]
@@ -191,9 +192,12 @@ def test_process_video_sbs_matches_jax(tmp_path, clip):
 
 
 def test_guidance_not_yet_ported(tmp_path):
+    """Only the mono backend is left to port; CREStereo is the default."""
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tdepth.StereoDepthExtractor(work_dir=str(tmp_path),
-                                    guidance="crestereo", device="cpu")
+                                    guidance="mono", device="cpu")
+    ext = tdepth.StereoDepthExtractor(work_dir=str(tmp_path), device="cpu")
+    assert ext.guidance == "crestereo"
 
 
 def test_no_silent_cpu_fallback(tmp_path, monkeypatch):
@@ -214,8 +218,14 @@ def test_cli_stereo_only_and_unported_flags(tmp_path, capsys):
     make_test_video(video, n_frames=3, width=64, height=24)
     assert main([str(video), "--auto-range", "--stereo-only",
                  "--device", "cpu"]) == 2
-    assert main([str(video), "--device", "cpu"]) == 2  # CREStereo default
     assert "not yet ported" in capsys.readouterr().err
+    # no flag: the CREStereo hybrid, the JAX CLI's default
+    hybrid = tmp_path / "wh"
+    assert main([str(video), "--work-dir", str(hybrid), "--max-frames", "2",
+                 "--batch-size", "2", "--device", "cpu"]) == 0
+    assert "Guidance model loaded: crestereo" in capsys.readouterr().out
+    assert sorted(f.name for f in hybrid.glob("depth_*/depth_*.png")) == [
+        "depth_000000.png", "depth_000001.png"]
     work = tmp_path / "wd"
     assert main([str(video), "--stereo-only", "--work-dir", str(work),
                  "--max-frames", "2", "--batch-size", "2",

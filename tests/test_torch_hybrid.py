@@ -311,10 +311,9 @@ def test_cache_key_tags_trust_scale(tmp_path):
 
 
 def test_unported_guidance_raises(tmp_path):
-    for g in ("crestereo", "mono"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            tdepth.StereoDepthExtractor(work_dir=str(tmp_path), guidance=g,
-                                        device="cpu")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        tdepth.StereoDepthExtractor(work_dir=str(tmp_path), guidance="mono",
+                                    device="cpu")
 
 
 def test_cli_guidance_dpt(tmp_path, capsys):
@@ -334,6 +333,5 @@ def test_cli_guidance_dpt(tmp_path, capsys):
     assert "Guidance model loaded: dpt" in capsys.readouterr().out
     pngs = sorted(work.glob("depth_*/depth_*.png"))
     assert [f.name for f in pngs] == [f"depth_{i:06d}.png" for i in range(3)]
-    for g in ("crestereo", "mono"):
-        assert main([str(video), "--guidance", g, "--device", "cpu"]) == 2
+    assert main([str(video), "--guidance", "mono", "--device", "cpu"]) == 2
     assert "not yet ported" in capsys.readouterr().err

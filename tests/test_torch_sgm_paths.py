@@ -199,7 +199,7 @@ def test_extractor_modes_match_tpu_path(tmp_path, paths):
     p = stereo.SGBMParams(num_disparities=ND, num_paths=paths)
     ext = tdepth.StereoDepthExtractor(work_dir=str(tmp_path), params=p,
                                       unsqueeze_anamorphic=False,
-                                      device="cpu")
+                                      device="cpu", guidance="none")
     assert f"num_paths={paths}" in ext._model_key()
     assert ext._run_batches([(frames, 2)], tmp_path / "maps") == 2
     maps = np.stack([load_depth_png16(f)

@@ -140,7 +140,8 @@ def test_smoothed_stage_matches_jax(tmp_path, smooth, flow_scale):
         flow_scale=flow_scale).process_video_sbs(str(video))
     ext = tdepth.StereoDepthExtractor(
         work_dir=str(tmp_path / "torch"), batch_size=2, params=p,
-        temporal_smooth=smooth, flow_scale=flow_scale, device="cpu")
+        temporal_smooth=smooth, flow_scale=flow_scale, device="cpu",
+        guidance="none")
     tcache = ext.process_video_sbs(str(video))
     jnames = [f.name for f in list_depth_frames(jcache)]
     tnames = [f.name for f in list_depth_frames(tcache)]
@@ -167,5 +168,6 @@ def test_smoother_options_validated(tmp_path):
                                       temporal_median=True, device="cpu")
     assert ext.temporal_smooth == "median"
     assert "+tmedian" in ext._model_key()
-    plain = tdepth.StereoDepthExtractor(work_dir=str(tmp_path), device="cpu")
+    plain = tdepth.StereoDepthExtractor(work_dir=str(tmp_path), device="cpu",
+                                        guidance="none")
     assert "+t" not in plain._model_key().replace("+torch", "")

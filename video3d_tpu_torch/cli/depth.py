@@ -1,13 +1,14 @@
 """CLI: stereo depth extraction on the PyTorch port.
 
-``python -m video3d_tpu_torch.cli.depth <sbs.mp4> --stereo-only
---work-dir WD --max-frames N``, or ``--guidance dpt --model <HF
-safetensors dir>`` for the DPT hybrid. Accepts the JAX CLI's flags
-(``video3d_tpu.cli.depth``); those of features not yet ported exit with
-"not yet ported" instead of being ignored. Without ``--stereo-only`` or
-``--guidance`` the JAX default is the CREStereo hybrid, which is not yet
-ported either. ``--device`` defaults to ``cuda``; ``--device cpu`` is the
-only way onto the CPU (the kernels' plain twins).
+``python -m video3d_tpu_torch.cli.depth <sbs.mp4> --work-dir WD
+--max-frames N`` runs the CREStereo hybrid, the JAX CLI's default, on the
+bundled weights (``video3d_tpu_torch/weights/crestereo_v1.safetensors``);
+``--stereo-only`` runs the matcher alone, ``--guidance dpt --model <HF
+safetensors dir>`` the DPT hybrid. Accepts the JAX CLI's flags
+(``video3d_tpu.cli.depth``); those of features not yet ported (and
+``--guidance mono``) exit with "not yet ported" instead of being ignored.
+``--device`` defaults to ``cuda``; ``--device cpu`` is the only way onto
+the CPU (the kernels' plain twins).
 """
 
 from __future__ import annotations
@@ -40,15 +41,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "twins of the kernels)")
     p.add_argument("--guidance", default=None,
                    choices=["none", "dpt", "crestereo", "mono"],
-                   help="Guidance backend; 'none' and 'dpt' are ported")
+                   help="Guidance backend (default: crestereo unless "
+                        "--stereo-only); 'mono' is not yet ported")
     p.add_argument("--stereo-only", action="store_true",
                    help="Disable neural guidance (reference depth.py:507)")
     p.add_argument("--no-neural", action="store_true",
                    help="Alias of --stereo-only")
     p.add_argument("--model", default="Intel/dpt-large",
-                   help="Guidance checkpoint: a local HF DPT directory with "
-                        "*.safetensors (none ships; a failed load falls "
-                        "back to stereo-only)")
+                   help="Guidance checkpoint: the CREStereo weights file "
+                        "(default: the bundled one) or a local HF DPT "
+                        "directory with *.safetensors (none ships); a "
+                        "failed load falls back to stereo-only")
     p.add_argument("--no-unsqueeze", action="store_true",
                    help="Skip the 2x anamorphic unsqueeze")
     p.add_argument("--per-frame-normalize", action="store_true",
@@ -102,9 +105,9 @@ def main(argv=None) -> int:
         guidance = "none"
     else:
         guidance = "crestereo"  # the JAX CLI's default
-    if guidance not in ("none", "dpt"):
-        print(f"not yet ported: guidance {guidance!r} (use --stereo-only "
-              f"or --guidance dpt)", file=sys.stderr)
+    if guidance == "mono":
+        print("not yet ported: guidance 'mono' (use --guidance crestereo, "
+              "dpt or none)", file=sys.stderr)
         return 2
 
     from video3d_tpu_torch.stages.depth import StereoDepthExtractor

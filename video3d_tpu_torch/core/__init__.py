@@ -1,8 +1,8 @@
 """Host-side media I/O and artifact store of the port.
 
 A copy of what the port uses from the JAX package's host layer: probing,
-streaming frame decode, 16-bit PNG depth-map I/O, content-hash cache keys
-and the work-dir layout. It imports neither ``jax`` nor ``torch``, and
+streaming frame decode and encode, 16-bit PNG depth-map I/O, content-hash
+cache keys and the work-dir layout. It imports neither ``jax`` nor ``torch``, and
 nothing of ``video3d_tpu``. ``_native`` loads the C++ PNG16 encoder and
 the MP4 reader from ``native/`` at the root of the checkout (built there
 with ``make -C native`` at first use; OpenCV otherwise). Device code
@@ -23,7 +23,8 @@ from video3d_tpu_torch.core.depthio import (
     save_depth_png16,
 )
 from video3d_tpu_torch.core.probe import get_video_info
-from video3d_tpu_torch.core.video import VideoReader
+from video3d_tpu_torch.core.video import (SegmentParallelVideoWriter,
+                                          VideoReader, VideoWriter)
 
 __all__ = [
     "get_video_info",
@@ -33,6 +34,8 @@ __all__ = [
     "is_depth_cached",
     "is_depth_cached_range",
     "VideoReader",
+    "VideoWriter",
+    "SegmentParallelVideoWriter",
     "save_depth_png16",
     "load_depth_png16",
     "list_depth_frames",

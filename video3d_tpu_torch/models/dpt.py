@@ -45,6 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from video3d_tpu_torch.kernels import attention as attention_kernels
+from video3d_tpu_torch.models.guidance import loader_device as _loader_device
 
 # DPT normalisation (Intel/dpt-large preprocessor: mean = std = 0.5).
 DPT_MEAN = 0.5
@@ -542,18 +543,6 @@ def make_guidance_fn(model: DPTDepthModel, infer_size: int = 384):
         return resize2d(depth, h, w, method="bilinear")
 
     return GuidanceFn(apply_fn, model)
-
-
-def _loader_device(device, name: str) -> torch.device:
-    """The device a DPT loader puts the model on: ``cuda`` unless the caller
-    names another; raises where CUDA is asked for and missing (no fallback
-    to the CPU)."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"{name}: CUDA is not available; pass device=\"cpu\" to run on "
-            f"the CPU")
-    return device
 
 
 def random_dpt_guidance(cfg: Optional[DPTConfig] = None, seed: int = 0,

@@ -31,3 +31,15 @@ class GuidanceFn:
         if self.stereo:
             return self._apply(self.module, left, right)
         return self._apply(self.module, left)
+
+
+def loader_device(device, name: str) -> torch.device:
+    """The device a model loader puts its model on: ``cuda`` unless the
+    caller names another; raises where CUDA is asked for and missing (no
+    fallback to the CPU)."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{name}: CUDA is not available; pass device=\"cpu\" to run on "
+            f"the CPU")
+    return device

@@ -8,11 +8,14 @@ optional neural guidance blend, clamp of invalid pixels to 0, fixed-range
 or per-frame normalisation, uint16 out. Host I/O -- decode, PNG16
 writing, cache keys -- is the port's own :mod:`video3d_tpu_torch.core`.
 
-Guidance (``guidance='dpt'``): DPT-large monocular depth
-(:mod:`video3d_tpu_torch.models.dpt`, attention kernel B7) on every Kth
-frame of a batch, min-max normalised, SSI-aligned onto the confident
-stereo and mixed by :func:`confidence_trust_blend` (or the fixed 0.7/0.3
-blend). The CREStereo and mono backends are not yet ported.
+Guidance, on every Kth frame of a batch: ``guidance='crestereo'`` (the
+default) runs the CREStereo-lite matcher on both eyes
+(:mod:`video3d_tpu_torch.models.crestereo`, the bundled weights), whose
+disparity is mixed in as it is; ``guidance='dpt'`` runs DPT-large
+monocular depth (:mod:`video3d_tpu_torch.models.dpt`, attention kernel
+B7), min-max normalised and SSI-aligned onto the confident stereo. Both
+mix by :func:`confidence_trust_blend` (or the fixed 0.7/0.3 blend). The
+mono backend is not yet ported.
 
 Temporal smoothing (``temporal_smooth``): ``median`` runs the median-of-3
 along the frame axis, ``flow`` the flow-guided EMA on a 1/``flow_scale``
@@ -33,6 +36,8 @@ import torch
 from video3d_tpu_torch.core import (DepthMapWriter, VideoReader,
                                     create_work_directory, depth_cache_dir,
                                     get_video_info, is_depth_cached_range)
+from video3d_tpu_torch.models.crestereo import (BUNDLED_WEIGHTS,
+                                                load_crestereo_guidance)
 from video3d_tpu_torch.models.mono import ssi_align
 from video3d_tpu_torch.ops.boxsum import box_sum_2d
 from video3d_tpu_torch.ops.fill import fill_holes as fill_holes_op
@@ -177,6 +182,19 @@ def guidance_blend(disp: torch.Tensor, margin: Optional[torch.Tensor],
     return stereo_weight * disp + (1.0 - stereo_weight) * guide
 
 
+def host_copy_async(t: torch.Tensor):
+    """(host tensor, event): ``t`` copied into pinned host memory without
+    waiting, and the event to synchronize on before reading it; a CPU
+    tensor is returned as it is, with no event."""
+    if t.device.type != "cuda":
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(t.device))
+    return host, event
+
+
 def disparity_to_uint16(disp: torch.Tensor, num_disparities: int,
                         normalize: str = "fixed") -> torch.Tensor:
     """Clamp invalid/negative to 0 (reference depth.py:374), normalise
@@ -250,14 +268,14 @@ def depth_batch_pipeline(
 
 
 class StereoDepthExtractor:
-    """Stereo depth from SBS video on a torch device, with optional DPT
-    guidance."""
+    """Stereo depth from SBS video on a torch device, with CREStereo (the
+    default) or DPT guidance, or none."""
 
     def __init__(
         self,
         work_dir: str = "temp_depth",
         batch_size: Optional[int] = None,
-        guidance: str = "none",
+        guidance: str = "crestereo",
         model_checkpoint: str = "Intel/dpt-large",
         unsqueeze_anamorphic: bool = True,
         normalize: str = "fixed",
@@ -278,9 +296,12 @@ class StereoDepthExtractor:
         plain twins run only when ``device="cpu"`` is asked for.
         ``temporal_smooth``: none|median|flow (``temporal_median=True``
         spells median); ``flow_scale`` 2 or 4 is the guide's reduction.
-        ``guidance``: none|stereo_only|dpt, ``model_checkpoint`` the local
-        DPT checkpoint (an HF safetensors directory); a guidance model
-        that fails to load falls back to stereo-only with a warning.
+        ``guidance``: crestereo (default)|dpt|none|stereo_only;
+        ``model_checkpoint`` is the CREStereo weights file (its default
+        ``Intel/dpt-large``, the CLI's, resolves to the bundled
+        ``weights/crestereo_v1.safetensors``) or the local DPT checkpoint
+        (an HF safetensors directory); a guidance model that fails to
+        load falls back to stereo-only with a warning.
         ``guidance_every`` K runs the guidance on every Kth frame (K=4,
         the JAX default), ``blend`` confidence|fixed (``stereo_weight`` is
         the fixed blend's), ``trust_scale`` 1|2|4, ``fill_holes`` None =
@@ -288,17 +309,23 @@ class StereoDepthExtractor:
         (default, MODE_SGBM) or 8 (MODE_HH) picks the matcher's mode;
         ``horizontal_route`` legacy|xla|mxu the layout of its horizontal
         sweeps (the same maps, so not part of the cache key)."""
-        if guidance in ("crestereo", "mono"):
+        if guidance == "mono":
             raise NotImplementedError(
-                f"guidance={guidance!r} is not yet ported (none|dpt)")
-        if guidance not in ("none", "stereo_only", "dpt"):
+                "guidance='mono' is not yet ported (crestereo|dpt|none)")
+        if guidance not in ("none", "stereo_only", "dpt", "crestereo"):
             raise ValueError(f"Unknown guidance backend: {guidance}")
         if normalize not in ("fixed", "per_frame"):
             raise ValueError(f"normalize must be fixed|per_frame: {normalize}")
         self.work_dir = create_work_directory(work_dir)
         self.batch_size = batch_size
         self.guidance = guidance
-        self.model_checkpoint = (model_checkpoint if guidance == "dpt"
+        # the CLI's --model default names the DPT checkpoint; the
+        # crestereo backend resolves it to the bundled weights file, as
+        # the JAX stage resolves it to crestereo_ckpt/
+        if guidance == "crestereo" and model_checkpoint == "Intel/dpt-large":
+            model_checkpoint = str(BUNDLED_WEIGHTS)
+        self.model_checkpoint = (model_checkpoint
+                                 if guidance in ("dpt", "crestereo")
                                  else "stereo_only")
         self.unsqueeze_anamorphic = bool(unsqueeze_anamorphic)
         self.normalize = normalize
@@ -363,10 +390,14 @@ class StereoDepthExtractor:
         if self.guidance in ("none", "stereo_only"):
             return
         try:
-            from video3d_tpu_torch.models.dpt import load_dpt_guidance
+            if self.guidance == "crestereo":
+                self._guidance_fn = load_crestereo_guidance(
+                    self.model_checkpoint, device=self.device)
+            else:
+                from video3d_tpu_torch.models.dpt import load_dpt_guidance
 
-            self._guidance_fn = load_dpt_guidance(self.model_checkpoint,
-                                                  device=self.device)
+                self._guidance_fn = load_dpt_guidance(self.model_checkpoint,
+                                                      device=self.device)
             print(f"Guidance model loaded: {self.guidance}")
         except Exception as e:  # noqa: BLE001 -- degrade like the reference
             print(f"Warning: guidance load failed ({e}); using stereo only")
@@ -472,15 +503,7 @@ class StereoDepthExtractor:
 
             def stage(maps, start, n_valid):
                 nonlocal pending
-                event = None
-                if cuda:
-                    host = torch.empty(maps.shape, dtype=maps.dtype,
-                                       pin_memory=True)
-                    host.copy_(maps, non_blocking=True)
-                    event = torch.cuda.Event()
-                    event.record(torch.cuda.current_stream(self.device))
-                else:
-                    host = maps
+                host, event = host_copy_async(maps)
                 if pending is not None:
                     drain(pending)
                 pending = (host, event, start, n_valid)
