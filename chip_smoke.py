@@ -16,7 +16,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    ``video3d_tpu_torch/tools/card_checks.py`` (ragged widths, short
    heights, D from 16 to 128, every SGM mode, 2 to 65 speckle bands;
    gated, not timed); B8a
-   (``sgm_aggregate_pallas``, 8 paths)
+   (``sgm_aggregate_pallas``, 8 and 5 paths, on B2's and B3's kernels:
+   its launches a call from the recorded plan and a ``torch.profiler``
+   trace, its time beside the floor of that structure; 2 and 4 paths
+   gated and counted, not timed; and the small shapes of ``card_checks``)
    on f32 and bf16 cost, B8c (W-major sweeps: one direction forward and
    reverse, and both directions in one launch at the int16 and the f32
    accumulator, at HL = 1080 and HP = 1152), and the
@@ -60,7 +63,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    valid fraction, batch 0 against the all-twin path); both W-major
    horizontal routes (``horizontal_route`` xla and mxu) on one batch of 8
    at 5 and 8 paths, bit-equal to the legacy route; B8a through the public
-   ``sgm_aggregate_pallas``; the int16 probe's own run; the CREStereo
+   ``sgm_aggregate_pallas`` at 8 and 5 paths on f32 and bf16 cost; the
+   int16 probe's own run; the CREStereo
    hybrid, the shipped default (``StereoDepthExtractor`` with no guidance
    argument, the bundled weights; fails if it degrades to stereo-only;
    one forward of 2 keyframes and B1-B4 once per batch of 8, batch 0 step
@@ -579,6 +583,8 @@ def main() -> int:
         card_checks.check_b4(dev, *case)
     for case in card_checks.B8C_CASES:
         card_checks.check_b8c(dev, *case)
+    for case in card_checks.B8A_CASES:
+        card_checks.check_b8a(dev, *case)
     print(f"B1 equals its twin at {len(card_checks.B1_CASES)} small shapes "
           f"(D 16-128, widths 33-1000, heights 2-137, min_disparity 0 and "
           f"3, blocks 3-9); B2 at {len(card_checks.B2_CASES)} (widths "
@@ -588,29 +594,92 @@ def main() -> int:
           f"{len(card_checks.B4_CASES)} (2 to 65 bands, min_region 1-400, "
           f"maps smaller than the window); B8c at "
           f"{len(card_checks.B8C_CASES)} (both entries, D 16-128, rows "
-          f"1-1152, widths 1-257, all three type pairs, twice each)")
+          f"1-1152, widths 1-257, all three type pairs, twice each); B8a at "
+          f"{len(card_checks.B8A_CASES)} (2, 4, 5 and 8 paths, f32 and bf16 "
+          f"non-integer costs, D 1-128, widths 1-257, heights 1-137, one and "
+          f"two chunks of frames, twice each)")
 
-    # B8a, the public sgm_aggregate_pallas, at 8 paths on f32 and bf16 cost
-    # (the B1 volume as floats); bit-equal to its twin
-    for key, dt in (("B8a-f32", torch.float32), ("B8a-bf16", torch.bfloat16)):
-        cf = cost.to(dt)
-        got = sgm.sgm_aggregate_pallas(cf, 8, p.p1, p.p2)
-        want = sgm_aggregate(cf, p8)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        check(torch.equal(got, want), f"{key} differs from twin: {err}")
-        del got, want
-        add_row(key, at=at_1080,
-                name=f"B8a sgm_aggregate_pallas, 8 paths, "
-                     f"{str(dt)[6:]} cost",
-                source="video3d_tpu_torch/csrc/sgm.cu",
-                replaces="video3d_tpu/kernels/sgm.py:119", max_abs_err=err,
-                ms=cuda_ms(lambda: sgm.sgm_aggregate_pallas(
-                    cf, 8, p.p1, p.p2), 3) / B,
-                plain_ms=cuda_ms(lambda: sgm_aggregate(cf, p8), 1) / B,
-                work=(vol * (cf.element_size() + 4) / B,
-                      8 * SWEEP_OPS * vol / B))
-        del cf
+    # B8a, the public sgm_aggregate_pallas, at 8 and 5 paths on the f32 and
+    # bf16 cost (the B1 volume over 3: non-integer values, the default
+    # penalties over 3); bit-equal to its twin. Its launches a call are the
+    # recorded plan's and the device kernels of a torch.profiler trace. The
+    # floor of its structure: the horizontal launch moves the cost twice and
+    # the f32 accumulator three times, each vertical launch the cost and
+    # the accumulator once and the total once
+    def b8a_kernels(cf, paths, pa):
+        """({sweep kernel: (launches a call, ms a call)}, kernels a call)
+        of B8a in a torch.profiler trace. A trace has been seen to hold one
+        kernel record fewer than the calls launched, so the count a call
+        is taken over five calls and rounded."""
+        _, per = profile_kernels(lambda: sgm.sgm_aggregate_pallas(
+            cf, paths, pa.p1, pa.p2), 5)
+        sweeps = {name: v for name, v in per.items()
+                  if "horizontal_kernel" in name or "vertical_kernel" in name}
+        return sweeps, sum(n for n, _ in sweeps.values())
+
+    for paths in (8, 5):
+        pa = SGBMParams(num_paths=paths, p1=p.p1 / 3, p2=p.p2 / 3)
+        steps = 2 if paths == 8 else 1
+        for dt, short in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            key = f"B8a-{short}" + ("-5" if paths == 5 else "")
+            cf = (cost.to(torch.float32) / 3).to(dt)
+            got = sgm.sgm_aggregate_pallas(cf, paths, pa.p1, pa.p2)
+            want = sgm_aggregate(cf, pa)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            check(torch.equal(got, want), f"{key} differs from twin: {err}")
+            del got, want
+            n_call = sgm.aggregate_plan[0]
+            check(n_call == 1 + steps,
+                  f"{key}: {n_call} launches a call, not {1 + steps}")
+            sweeps, n_dev = b8a_kernels(cf, paths, pa)
+            check(round(n_dev) == n_call, f"{key}: {n_dev} kernels a call "
+                  f"in the profile, the plan says {n_call}")
+            cb = cf.element_size()
+            floor_b = ((2 * cb + 3 * 4) + steps * (cb + 2 * 4)) * vol / B
+            add_row(key, at=at_1080,
+                    name=f"B8a sgm_aggregate_pallas, {paths} paths, "
+                         f"{str(dt)[6:]} cost",
+                    source="video3d_tpu_torch/csrc/sgm.cu",
+                    replaces="video3d_tpu/kernels/sgm.py:119",
+                    max_abs_err=err,
+                    ms=cuda_ms(lambda: sgm.sgm_aggregate_pallas(
+                        cf, paths, pa.p1, pa.p2), 5) / B,
+                    plain_ms=cuda_ms(lambda: sgm_aggregate(cf, pa), 1) / B,
+                    # the cost read once, the f32 total written once
+                    work=(vol * (cb + 4) / B, paths * SWEEP_OPS * vol / B))
+            r = rows[key]
+            print(f"{key}: {n_call} launches a call (torch.profiler: "
+                  f"{n_dev} kernels, device "
+                  f"{sum(ms for _, ms in sweeps.values()) / B:.4f} ms/frame); "
+                  f"{r['ms']:.4f} ms/frame against the floor of its "
+                  f"structure {floor_b / HBM_BYTES_S * 1e3:.4f} "
+                  f"({floor_b / 1e6:.0f} MB a frame) and the bound "
+                  f"{r['bound_ms']:.4f} ({r['bound_by']}) on {card}")
+            for name, (n, ms) in sorted(sweeps.items()):
+                print(f"  {ms / B:8.4f} ms/frame  {n:4.1f} a call  "
+                      f"{name[:90]}")
+            del cf
+    hp, vp = sgm.horizontal_plan, sgm.vertical_plan
+    # the other two modes: bit-equal to the twin, 1 and 3 launches a call
+    cf = cost.to(torch.float32) / 3
+    for paths, launches in ((2, 1), (4, 3)):
+        pa = SGBMParams(num_paths=paths, p1=p.p1 / 3, p2=p.p2 / 3)
+        check(torch.equal(sgm.sgm_aggregate_pallas(cf, paths, pa.p1, pa.p2),
+                          sgm_aggregate(cf, pa)),
+              f"B8a at {paths} paths differs from twin")
+        _, n_dev = b8a_kernels(cf, paths, pa)
+        check(round(n_dev) == sgm.aggregate_plan[0] == launches,
+              f"B8a at {paths} paths: {n_dev} kernels a call in the "
+              f"profile, the plan says {sgm.aggregate_plan[0]}")
+        print(f"B8a at {paths} paths, f32 cost: equal to its twin, "
+              f"{launches} launch(es) a call (torch.profiler: {n_dev:.1f} "
+              f"kernels)")
+    del cf
+    print(f"B8a's launches (bf16, 5 paths): horizontal {hp[2]} blocks, "
+          f"{hp[0]} resident on each of {hp[1]} multiprocessors; vertical "
+          f"{vp[0]} blocks of {vp[5]} columns a multiprocessor, {vp[2]} "
+          f"strips a frame, {vp[3]} frames a launch")
 
     # B8c on the W-major volume. The one-direction entry, forward into a
     # fresh accumulator and reverse added in place, against its twin; the
@@ -1265,17 +1334,21 @@ def main() -> int:
 
         # -- 4f. B8a through the public sgm_aggregate_pallas ------------------
         phase("4f. sgm_aggregate_pallas")
-        # on the f32 and bf16 cost volume of two 1080p frames at 8 paths
+        # on the f32 and bf16 cost volume of two 1080p frames at 8 and 5
+        # paths
         counts(reset=True)
         agl, agr = gray_pair(torch.from_numpy(sbs_frames(B, SEED + 40)).to(dev))
         acost = costvol.cost_volume(agl, agr, p, inv)
-        for key, dt in (("B8a-f32", torch.float32),
-                        ("B8a-bf16", torch.bfloat16)):
+        for key, dt, paths in (
+                ("B8a-f32", torch.float32, 8), ("B8a-bf16", torch.bfloat16, 8),
+                ("B8a-f32-5", torch.float32, 5),
+                ("B8a-bf16-5", torch.bfloat16, 5)):
             before = sgm.aggregate_launches
-            agg = kernels_api.sgm_aggregate_pallas(acost.to(dt), 8)
+            agg = kernels_api.sgm_aggregate_pallas(acost.to(dt), paths)
             check(agg.dtype == torch.float32 and bool(torch.isfinite(agg).all())
                   and agg.shape == acost.shape, f"{key} output")
             rows[key]["launches"] = sgm.aggregate_launches - before
+            print(f"{key}: {sgm.aggregate_plan[0]} kernel launches a call")
         ran(counts(), ("B8a",), "sgm_aggregate_pallas")
         print(f"sgm_aggregate_pallas: launches B8a = {sgm.aggregate_launches}")
         del agl, agr, acost, agg

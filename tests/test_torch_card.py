@@ -6,11 +6,12 @@ on a machine that has a CUDA card and no JAX:
     python -m pytest --noconftest tests/test_torch_card.py -m cuda
 
 Every test is marked ``cuda`` and skips where ``torch.cuda.is_available()``
-is false. B1-B4 and B8c run the small-shape lists of
+is false. B1-B4, B8a and B8c run the small-shape lists of
 ``video3d_tpu_torch/tools/card_checks.py`` (ragged widths, short heights,
-D from 16 to 128, ``min_disparity`` 3, every SGM mode, both accumulator
-types, 2 bands to one a disparity), B6's level step and B5's EMA step
-their lists there (guides 5x7 to 540x960); the other kernels
+D from 16 to 128 (B8a from 1), ``min_disparity`` 3, every SGM mode, both
+accumulator types, f32 and bf16 float costs, 2 bands to one a disparity),
+B6's level step and B5's EMA step their lists there (guides 5x7 to
+540x960); the other kernels
 run at the shapes of the ``cuda`` tests beside their CPU tests. Gates are
 the smoke's: B1, B2, B4, B8a-c and P bit-exact; B3 identical validity,
 disparity within 1e-5, margin within rtol 1e-6; B5 1e-5 (its EMA step
@@ -22,11 +23,9 @@ import numpy as np
 import pytest
 import torch
 
-from video3d_tpu_torch import kernels as tkernels
 from video3d_tpu_torch.kernels import (attention, flowmatch, sgm, warp,
                                        wmajor)
 from video3d_tpu_torch.ops import flow as tflow
-from video3d_tpu_torch.ops import stereo
 from video3d_tpu_torch.ops.attention import attention_plain
 from video3d_tpu_torch.tools import card_checks, probe_i16
 
@@ -134,16 +133,9 @@ def test_b7_matches_twin(dev, dtype, shape):
     assert attention.launches == n + 2
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("paths", [2, 4, 5, 8])
-def test_b8a_matches_twin(dev, paths, dtype):
-    cost = _uniform(5, 0, 100, (2, 30, 70, 40), dev).to(dtype)
-    n = sgm.aggregate_launches
-    got = tkernels.sgm_aggregate_pallas(cost, paths, 6.0, 24.0)
-    assert sgm.aggregate_launches == n + 1
-    want = stereo.sgm_aggregate(cost, stereo.SGBMParams(num_paths=paths,
-                                                        p1=6.0, p2=24.0))
-    assert torch.equal(got, want)
+@pytest.mark.parametrize("case", card_checks.B8A_CASES, ids=str)
+def test_b8a_matches_twin(dev, case):
+    card_checks.check_b8a(dev, *case)
 
 
 @pytest.mark.parametrize("dtype", [torch.int16, torch.float32])

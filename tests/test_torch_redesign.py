@@ -23,6 +23,10 @@ kernels to, and to the JAX kernels in interpret mode:
   iteration's stores) where it was stored by then, else straight from the
   accumulator. Bit-equal to ``horizontal_sweeps_plain`` and to JAX
   ``_directional_pass_dmajor`` run forward then reverse.
+- B8a (B2's and B3's kernels on an f32 or bf16 cost): the horizontal pair
+  in B2's order with the 1e9 sentinel past D set back after every step,
+  then each vertical launch adding the vertical, dx +1 and dx -1 path
+  values to the accumulator in that order. Bit-equal to ``sgm_aggregate``.
 - B4 (``csrc/speckle.cu``): the band from the twin's expression; for up to
   four bands the cumulative band indicators as the bytes of a 32-bit word,
   a horizontal window sum of the words, a ring of 2r+1 rows of them and a
@@ -303,6 +307,89 @@ def test_b2_order_bit_equal_to_twin_and_jax(b, h, w, d, with_jax, paths):
                                      interpret=True)
     np.testing.assert_array_equal(got.permute(0, 2, 3, 1).numpy(),
                                   np.asarray(acc_t))
+
+
+BIG = np.float32(1e9)  # the f32 carry sentinel of the float sweeps
+
+
+def b8a_kernel_order(cost, paths, p1, p2):
+    """The f32 total of a (B, H, W, D) f32 or bf16 cost in the order of
+    B8a's launches: ``horizontal_kernel``'s two chains from a row's two
+    ends (the second to reach a pixel adds its path value to what the first
+    stored), then one ``vertical_kernel`` launch per sweep step, each
+    adding to the accumulator the vertical, dx +1 and dx -1 path values in
+    that order. A pixel is held on ``lanes * runs >= D`` disparities with
+    the 1e9 sentinel past D, which every step sets back past D."""
+    b, h, w, d = cost.shape
+    lanes, runs = ((8, 4) if d <= 32 else (16, 4) if d <= 64 else
+                   (32, 3) if d <= 96 else (32, 4))
+    dp = lanes * runs
+    big = torch.tensor(BIG)
+    f1, f2 = torch.tensor(np.float32(p1)), torch.tensor(np.float32(p2))
+    c = torch.full((b, h, w, dp), BIG)
+    c[..., :d] = cost.to(torch.float32)
+    real = torch.arange(dp) < d
+    fill = torch.where(real, torch.tensor(np.float32(0)), big)
+
+    def step(carry, cost_px):  # sgm_step over the lanes, then the mask
+        m = carry.amin(dim=-1, keepdim=True)
+        edge = torch.full_like(carry[..., :1], BIG)
+        dn = torch.cat([edge, carry[..., :-1]], dim=-1)
+        up = torch.cat([carry[..., 1:], edge], dim=-1)
+        best = torch.minimum(torch.minimum(carry, m + f2),
+                             torch.minimum(up, dn) + f1)
+        return torch.where(real, (cost_px + best) - m, big)
+
+    acc = torch.full((b, h, w, d), float("nan"))
+    lf = lr = fill.expand(b, h, dp)
+    for t in range(w):
+        lf, lr = step(lf, c[:, :, t]), step(lr, c[:, :, w - 1 - t])
+        if 2 * t == w - 1:  # the middle pixel of an odd width
+            acc[:, :, t] = (lf + lr)[..., :d]
+        elif 2 * t > w - 1:  # the other chain stored here first
+            acc[:, :, t] = acc[:, :, t] + lf[..., :d]
+            acc[:, :, w - 1 - t] = acc[:, :, w - 1 - t] + lr[..., :d]
+        else:
+            acc[:, :, t] = torch.zeros(()) + lf[..., :d]
+            acc[:, :, w - 1 - t] = torch.zeros(()) + lr[..., :d]
+    assert not acc.isnan().any()
+    diagonals = paths in (5, 8)
+    for dy in {2: (), 5: (1,)}.get(paths, (1, -1)):
+        l0 = lp = ln = fill.expand(b, w, dp)
+        for y in (range(h) if dy > 0 else range(h - 1, -1, -1)):
+            cy = c[:, y]
+            l0 = step(l0, cy)
+            total = acc[:, y] + l0[..., :d]
+            if diagonals:  # carries from x - 1 and x + 1, fill at the edges
+                edge = fill.expand(b, 1, dp)
+                lp = step(torch.cat([edge, lp[:, :-1]], dim=1), cy)
+                ln = step(torch.cat([ln[:, 1:], edge], dim=1), cy)
+                total = (total + lp[..., :d]) + ln[..., :d]
+            acc[:, y] = total
+    return acc
+
+
+@pytest.mark.parametrize("b,h,w,d,paths,dtype,p1,p2", [
+    (1, 1, 1, 1, 8, torch.float32, 6.5, 24.25),
+    (2, 5, 7, 1, 5, torch.bfloat16, 6.5, 24.25),
+    (2, 6, 9, 16, 8, torch.float32, 6.0, 24.0),
+    (1, 4, 16, 40, 4, torch.float32, 7.3, 30.1),
+    (1, 7, 17, 57, 8, torch.bfloat16, 6.5, 24.25),
+    (1, 3, 6, 70, 2, torch.float32, 6.5, 24.25),
+    (1, 5, 6, 96, 8, torch.float32, 7.3, 30.1),
+    (1, 3, 5, 128, 5, torch.bfloat16, 6.5, 24.25),
+])
+def test_b8a_order_bit_equal_to_twin(b, h, w, d, paths, dtype, p1, p2):
+    """Non-integer costs and penalties (7.3 and 30.1 round in f32), every
+    mode and lane layout, widths of 1 and odd and even ones, D of 1 and
+    with a ragged tail: B8a's order gives the twin's bits."""
+    r = np.random.default_rng(52)
+    cost = torch.from_numpy(r.uniform(0, 100, (b, h, w, d)).astype(
+        np.float32)).to(dtype)
+    got = b8a_kernel_order(cost, paths, p1, p2)
+    want = stereo.sgm_aggregate(cost, stereo.SGBMParams(num_paths=paths,
+                                                        p1=p1, p2=p2))
+    assert torch.equal(got, want)
 
 
 def b4_kernel_order(disp, invalid, max_diff, min_region,

@@ -244,7 +244,8 @@ def test_modes_and_penalties_checked():
 
 
 # ---------------------------------------------------------------------------
-# On the card: B2/B3 at f32 accumulators and B8a against their twins
+# On the card: B2/B3 at f32 accumulators against their twins (B8a's card
+# cases are tests/test_torch_card.py test_b8a_matches_twin)
 # ---------------------------------------------------------------------------
 
 
@@ -270,16 +271,3 @@ def test_cuda_modes_match_twins(cuda_device, paths):
     assert torch.equal(disp >= 0, disp_p >= 0)
     assert (disp - disp_p).abs().max().item() <= 1e-5
     assert torch.allclose(m, m_p, rtol=1e-6)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("paths", PATHS)
-def test_cuda_b8a_matches_twin(cuda_device, paths, dtype):
-    r = np.random.default_rng(5)
-    cost = torch.from_numpy(r.uniform(0, 100, (2, 30, 70, 40)).astype(
-        np.float32)).to(cuda_device, dtype)
-    got = tkernels.sgm_aggregate_pallas(cost, paths, 6.0, 24.0)
-    want = stereo.sgm_aggregate(cost, stereo.SGBMParams(num_paths=paths,
-                                                        p1=6.0, p2=24.0))
-    assert torch.equal(got, want)

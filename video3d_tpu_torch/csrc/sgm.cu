@@ -8,20 +8,24 @@
 // top-down for MODE_SGBM, top-down then bottom-up for 4 and 8 paths) and
 // _directional_pass (body _row_kernel; B8a, the sweeps of
 // sgm_aggregate_pallas on an f32 or bf16 (B, H, W, D) cost with f32
-// carries). The TPU walks a row-block grid in order with the carries in
-// VMEM, all vertical directions and the WTA in one walk down the rows, the
-// total never stored.
+// carries, one call per direction). The TPU walks a row-block grid in
+// order with the carries in VMEM, all vertical directions and the WTA in
+// one walk down the rows, the total never stored.
 //
-// B8a, sweep_kernel: every SGM direction is a set of independent 1-D scan
-// lines (rows for the horizontals, columns for the verticals, diagonal
-// lines that start on the first row of the sweep or on the left/right edge
-// -- the TPU's zero lateral fill). One warp owns one scan line, each lane
-// DPL consecutive disparities, the carry in registers; the min over D is a
-// __shfl_xor butterfly and the d-1/d+1 neighbours come over
-// __shfl_up/down, with a sentinel past both ends of d. The next pixel's
-// cost and accumulator are loaded before the current step is computed. One
-// launch per direction reads the cost and read-modify-writes the
-// accumulator.
+// B8a runs on B2's and B3's kernels instantiated for a float cost: the
+// horizontal pair is one horizontal_kernel launch and each vertical sweep
+// step one vertical_kernel launch that stores the f32 total where B3's
+// closing launch runs the WTA. 2 paths is one launch, 5 paths two, 4 and
+// 8 paths three (top-down writes the accumulator, bottom-up stores the
+// total). At 1080p, D = 64, f32 cost, 8 paths this moves 5,839 MB a
+// frame (2,654 in the horizontal launch: cost twice, accumulator three
+// times; 1,592 in each vertical one: cost and accumulator read, total
+// written), 4,777 with a bf16 cost, where a launch per direction, each
+// reading the cost and reading and writing the running total, moves
+// 12,209 and a single pass that read the cost once and wrote the total
+// once would move 1,062. Measured, the vertical launches take as long with
+// a bf16 cost as with f32: like B3's they are bound by a row's chain of
+// operations more than by bytes.
 //
 // B2, horizontal_kernel: both horizontal directions in one launch. The
 // second direction to reach a pixel needs the first one's sum for it, and
@@ -65,11 +69,12 @@
 //     for. (Where a pixel's D values do not start on 16-byte boundaries
 //     the lanes load them one by one.)
 //   - Across strips the edge column's carry goes through global memory:
-//     each value is stored in one 32-bit word with the row's tag above it
-//     (a path value stays below 2^19 in size: the wrapper bounds the mode's
-//     total by 2^20), in a ring of four rows, and the neighbour spins on
-//     the words it needs until the tag is the row's -- no fence, no
-//     separate flag. An edge column first does the direction whose carry it
+//     each value is stored in one word with the row's tag above it (int:
+//     32 bits, a 12-bit tag above 20 bits of value, since a path value
+//     stays below 2^19 in size: the wrapper bounds the mode's total by
+//     2^20; f32: 64 bits, the tag above the float's bits), in a ring of
+//     four rows, and the neighbour spins on the words it needs until the
+//     tag is the row's -- no fence, no separate flag. An edge column first does the direction whose carry it
 //     publishes, asks for the neighbour's words before that step and looks
 //     at them after it. A block can run at most one row ahead of its
 //     neighbour, so a ring of four is never overwritten unread. All blocks
@@ -102,14 +107,19 @@
 // An int16 cost computes in int32 (exact; an f32 accumulator holds the
 // integer totals exactly, as the TPU's f32 carries do), so the result does
 // not depend on the order of the directions. An f32 or bf16 cost (B8a)
-// computes in f32 with the TPU kernel's 1e9 sentinel and its order of
-// operations, (c + best) - m and then acc + L, direction by direction in
-// the TPU's order, so it rounds as the TPU kernel and the plain twin do.
+// computes in f32 with f32 penalties, the TPU kernel's 1e9 sentinel past
+// both ends of d (a carry past D is set back to it after every step) and
+// its order of operations, (c + best) - m, and adds a pixel's total in the
+// TPU's order, ((L_lr + L_rl) + top-down 0, +1, -1) + bottom-up 0, +1, -1,
+// whatever order a column computes its directions in; so it rounds as the
+// TPU kernel and the plain twin do. (IEEE addition commutes, so B2's
+// second chain to reach a pixel may add L_rl + L_lr.)
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "sgm_common.cuh"
 
@@ -117,137 +127,8 @@ namespace {
 
 using namespace v3dsgm;
 
-constexpr float BIGF = 1e9f;
-
 // type codes of the C interface
 enum { T_I16 = 0, T_F32 = 1, T_BF16 = 2 };
-
-__device__ __forceinline__ float vmin(float a, float b) { return fminf(a, b); }
-
-template <typename C>
-__device__ __forceinline__ C sentinel();
-template <>
-__device__ __forceinline__ float sentinel<float>() { return BIGF; }
-
-template <typename C>
-__device__ __forceinline__ C load(const float* p, long long i) {
-  return (C)p[i];
-}
-template <typename C>
-__device__ __forceinline__ C load(const __nv_bfloat16* p, long long i) {
-  return (C)__bfloat162float(p[i]);
-}
-
-template <typename C>
-__device__ __forceinline__ C warp_min(C v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = vmin(v, __shfl_xor_sync(FULL, v, o));
-  return v;
-}
-
-// First pixel and length of scan line i for the step (dy, dx).
-__device__ __forceinline__ void line_start(int i, int H, int W, int dy,
-                                           int dx, int* y, int* x,
-                                           int* len) {
-  if (dy == 0) {
-    *y = i;
-    *x = dx > 0 ? 0 : W - 1;
-    *len = W;
-    return;
-  }
-  if (dx == 0) {
-    *x = i;
-    *y = dy > 0 ? 0 : H - 1;
-    *len = H;
-    return;
-  }
-  if (i < W) {
-    *x = i;
-    *y = dy > 0 ? 0 : H - 1;
-  } else {
-    int k = i - W + 1;
-    *x = dx > 0 ? 0 : W - 1;
-    *y = dy > 0 ? k : H - 1 - k;
-  }
-  int ylen = dy > 0 ? H - *y : *y + 1;
-  int xlen = dx > 0 ? W - *x : *x + 1;
-  *len = min(ylen, xlen);
-}
-
-// CT cost (f32 or bf16), AT accumulator and C compute type (both f32)
-template <typename CT, typename AT, typename C, int DPL>
-__global__ void sweep_kernel(const CT* __restrict__ cost, const AT* acc_in,
-                             AT* acc_out, int H, int W, int D, int dy, int dx,
-                             C p1, C p2, int n_lines) {
-  const int line = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (line >= n_lines) return;  // whole warps leave together
-  const long long b = blockIdx.y;
-  const C sent = sentinel<C>();
-  int y, x, len;
-  line_start(line, H, W, dy, dx, &y, &x, &len);
-
-  C L[DPL], c[DPL], a[DPL];
-#pragma unroll
-  for (int j = 0; j < DPL; ++j) {
-    int d = lane * DPL + j;
-    L[j] = d < D ? C(0) : sent;  // carries start at zero
-    c[j] = C(0);
-    a[j] = C(0);
-  }
-  long long base = ((b * H + y) * (long long)W + x) * D;
-#pragma unroll
-  for (int j = 0; j < DPL; ++j) {
-    int d = lane * DPL + j;
-    if (d < D) {
-      c[j] = load<C>(cost, base + d);
-      if (acc_in) a[j] = load<C>(acc_in, base + d);
-    }
-  }
-  for (int t = 0; t < len; ++t) {
-    const long long next =
-        ((b * H + (y + dy)) * (long long)W + (x + dx)) * D;
-    C cn[DPL], an[DPL];
-#pragma unroll
-    for (int j = 0; j < DPL; ++j) {
-      int d = lane * DPL + j;
-      cn[j] = C(0);
-      an[j] = C(0);
-      if (t + 1 < len && d < D) {
-        cn[j] = load<C>(cost, next + d);
-        if (acc_in) an[j] = load<C>(acc_in, next + d);
-      }
-    }
-    C m = L[0];
-#pragma unroll
-    for (int j = 1; j < DPL; ++j) m = vmin(m, L[j]);
-    m = warp_min(m);
-    C below = __shfl_up_sync(FULL, L[DPL - 1], 1);
-    C above = __shfl_down_sync(FULL, L[0], 1);
-    if (lane == 0) below = sent;
-    if (lane == 31) above = sent;
-    C Ln[DPL];
-#pragma unroll
-    for (int j = 0; j < DPL; ++j) {
-      int d = lane * DPL + j;
-      C dn = j > 0 ? L[j - 1] : below;
-      C up = j < DPL - 1 ? L[j + 1] : above;
-      C best = vmin(vmin(L[j], m + p2), vmin(up, dn) + p1);
-      Ln[j] = d < D ? (c[j] + best) - m : sent;
-    }
-#pragma unroll
-    for (int j = 0; j < DPL; ++j) {
-      int d = lane * DPL + j;
-      L[j] = Ln[j];
-      if (d < D) acc_out[base + d] = (AT)(acc_in ? a[j] + Ln[j] : Ln[j]);
-      c[j] = cn[j];
-      a[j] = an[j];
-    }
-    base = next;
-    y += dy;
-    x += dx;
-  }
-}
 
 constexpr int PF = 4;           // rows in flight per column (power of 2)
 constexpr int XCH_RING = 4;     // rows of an edge-exchange ring
@@ -262,6 +143,17 @@ __host__ __device__ inline int strip_cols(int D, int vw) {
 // ints between the two buffers of a block's right-image keys
 __host__ __device__ inline int keys_pitch(int D, int vw) {
   return (strip_cols(D, vw) + D - 1 + 3) & ~3;
+}
+
+// a stored value in the compute type V (a bf16 widens exactly to f32: its
+// bits are the top half of the float's)
+template <typename V, typename T>
+__device__ __forceinline__ V widen(T v) {
+  return (V)v;
+}
+template <typename V>
+__device__ __forceinline__ V widen(Bf16Bits v) {
+  return (V)__uint_as_float((unsigned)v.x << 16);
 }
 
 // value v[d % DPL] of the lane of this pixel that owns disparity d
@@ -279,20 +171,20 @@ template <typename T, int N>
 struct alignas(sizeof(T) * N) Run { T v[N]; };
 
 // a lane's DPL values at p (aligned to the run where DPL is 4)
-template <typename T, int DPL>
-__device__ __forceinline__ void load_run(const T* p, int (&out)[DPL]) {
+template <typename T, int DPL, typename V>
+__device__ __forceinline__ void load_run(const T* p, V (&out)[DPL]) {
   if constexpr (DPL == 4) {
     Run<T, DPL> r = *(const Run<T, DPL>*)p;
 #pragma unroll
-    for (int j = 0; j < DPL; ++j) out[j] = (int)r.v[j];
+    for (int j = 0; j < DPL; ++j) out[j] = widen<V>(r.v[j]);
   } else {
 #pragma unroll
-    for (int j = 0; j < DPL; ++j) out[j] = (int)p[j];
+    for (int j = 0; j < DPL; ++j) out[j] = widen<V>(p[j]);
   }
 }
 
-template <typename T, int DPL>
-__device__ __forceinline__ void store_run(T* p, const int (&v)[DPL]) {
+template <typename T, int DPL, typename V>
+__device__ __forceinline__ void store_run(T* p, const V (&v)[DPL]) {
   if constexpr (DPL == 4) {
     Run<T, DPL> r;
 #pragma unroll
@@ -327,21 +219,21 @@ __device__ __forceinline__ void fetch_pixel(char* slot, const T* src, int D,
 
 // a lane's DPL values of a pixel at p, D of them real: whole runs where D
 // is a multiple of the run (vec), else value by value
-template <typename T, int DPL>
+template <typename T, int DPL, typename V>
 __device__ __forceinline__ void load_pixel(const T* p, int D, int d0,
-                                           bool vec, int (&out)[DPL]) {
+                                           bool vec, V (&out)[DPL]) {
   if (DPL == 4 && vec) {
     if (d0 < D) load_run<T, DPL>(p + d0, out);
   } else {
 #pragma unroll
     for (int j = 0; j < DPL; ++j)
-      if (d0 + j < D) out[j] = (int)p[d0 + j];
+      if (d0 + j < D) out[j] = widen<V>(p[d0 + j]);
   }
 }
 
-template <typename T, int DPL>
+template <typename T, int DPL, typename V>
 __device__ __forceinline__ void store_pixel(T* p, int D, int d0, bool vec,
-                                            const int (&v)[DPL]) {
+                                            const V (&v)[DPL]) {
   if (DPL == 4 && vec) {
     if (d0 < D) store_run<T, DPL>(p + d0, v);
   } else {
@@ -351,9 +243,9 @@ __device__ __forceinline__ void store_pixel(T* p, int D, int d0, bool vec,
   }
 }
 
-// B2: both horizontal sweeps of the rows (B * H of them, W pixels of D
-// int16 costs each) in one launch; acc receives the sum of the two paths
-// and is not read before it is written.
+// B2 (and B8a's horizontal pair): both horizontal sweeps of the rows (B * H
+// of them, W pixels of D costs of type CT each) in one launch; acc receives
+// the sum of the two paths and is not read before it is written.
 //
 // A row is held by LPP lanes with DPL adjacent disparities each, so a warp
 // carries 32 / LPP rows and shares every shuffle of a step between them.
@@ -363,8 +255,9 @@ __device__ __forceinline__ void store_pixel(T* p, int D, int d0, bool vec,
 // to the middle of the row each stores its own path sum to acc; past it
 // each finds the other's sum there, adds its own and stores the total; an
 // odd width's middle pixel gets the sum of the two straight from the
-// registers. The sums are exact integers (int16, or integer totals in
-// f32), so the order of the two additions changes no bit.
+// registers. The int16 cost's sums are exact integers (int16, or integer
+// totals in f32), so the order of the two additions changes no bit; a
+// float cost's total is the one f32 addition L_lr + L_rl, which commutes.
 // Each line keeps HPF pixels in flight, copied asynchronously into its own
 // ring of shared-memory slots: the cost and, past the middle, the other
 // line's sum. The copy for iteration s is started in iteration s - HPF,
@@ -375,19 +268,24 @@ __device__ __forceinline__ void store_pixel(T* p, int D, int d0, bool vec,
 // never read through the non-coherent path.
 // The grid is sized by the host from the occupancy: a warp takes row
 // groups g, g + warps, ... in turn.
-template <typename AT, int LPP, int DPL>
+template <typename CT, typename AT, int LPP, int DPL>
 __global__ void __launch_bounds__(HW * 32)
-horizontal_kernel(const int16_t* __restrict__ cost, AT* acc, int rows, int W,
-                  int D, int p1, int p2) {
+horizontal_kernel(const CT* __restrict__ cost, AT* acc, int rows, int W,
+                  int D, typename Compute<CT>::type p1,
+                  typename Compute<CT>::type p2) {
+  using C = typename Compute<CT>::type;
+  constexpr bool FLOAT = std::is_same<C, float>::value;
   extern __shared__ int4 hsm4[];
   constexpr int PPW = 32 / LPP;  // rows of a warp
   constexpr int DP = LPP * DPL;  // disparities a pixel's lanes hold
-  constexpr int SLOT = DP * (2 + (int)sizeof(AT));  // bytes: cost, then sum
+  constexpr int CB = DP * (int)sizeof(CT);         // bytes: cost,
+  constexpr int SLOT = CB + DP * (int)sizeof(AT);  // then sum
+  const C sent = FLOAT ? C(BIGF) : C(SENT);
   const int lane = threadIdx.x & 31, dl = lane % LPP, d0 = dl * DPL;
   const int wib = threadIdx.x >> 5;
   // this row's rings: HPF slots left-to-right, then HPF right-to-left
   char* ring = (char*)hsm4 + (wib * PPW + lane / LPP) * (2 * HPF * SLOT);
-  const bool vec_c = (D * 2) % 16 == 0;
+  const bool vec_c = (D * (int)sizeof(CT)) % 16 == 0;
   const bool vec_a = (D * (int)sizeof(AT)) % 16 == 0;
   const int groups = (rows + PPW - 1) / PPW;
   const int warps = gridDim.x * HW;
@@ -395,18 +293,17 @@ horizontal_kernel(const int16_t* __restrict__ cost, AT* acc, int rows, int W,
   for (int g = blockIdx.x * HW + wib; g < groups; g += warps) {
     const int row = g * PPW + lane / LPP;
     const bool active = row < rows;
-    const int16_t* crow = cost + (long long)row * W * D;
+    const CT* crow = cost + (long long)row * W * D;
     AT* arow = acc + (long long)row * W * D;
     auto fetch = [&](int s) {  // the pixels of iteration s into slot s % HPF
       char* sf = ring + (s & (HPF - 1)) * SLOT;
       char* sr = sf + HPF * SLOT;
       const long long of = (long long)s * D, orv = (long long)(W - 1 - s) * D;
-      fetch_pixel<int16_t, DPL>(sf, crow + of, D, dl, d0, vec_c, active);
-      fetch_pixel<int16_t, DPL>(sr, crow + orv, D, dl, d0, vec_c, active);
+      fetch_pixel<CT, DPL>(sf, crow + of, D, dl, d0, vec_c, active);
+      fetch_pixel<CT, DPL>(sr, crow + orv, D, dl, d0, vec_c, active);
       if (2 * s >= W + HPF) {
-        fetch_pixel<AT, DPL>(sf + DP * 2, arow + of, D, dl, d0, vec_a, active);
-        fetch_pixel<AT, DPL>(sr + DP * 2, arow + orv, D, dl, d0, vec_a,
-                             active);
+        fetch_pixel<AT, DPL>(sf + CB, arow + of, D, dl, d0, vec_a, active);
+        fetch_pixel<AT, DPL>(sr + CB, arow + orv, D, dl, d0, vec_a, active);
       }
     };
     __syncwarp();  // the rings are free of the group before
@@ -415,30 +312,31 @@ horizontal_kernel(const int16_t* __restrict__ cost, AT* acc, int rows, int W,
       if (s < W) fetch(s);
       cp_async_commit();
     }
-    int Lf[DPL], Lr[DPL];  // carries start at zero
+    C Lf[DPL], Lr[DPL];  // carries start at zero (f32: the sentinel past D)
 #pragma unroll
-    for (int j = 0; j < DPL; ++j) Lf[j] = Lr[j] = 0;
+    for (int j = 0; j < DPL; ++j)
+      Lf[j] = Lr[j] = FLOAT && d0 + j >= D ? sent : C(0);
 
     for (int t = 0; t < W; ++t) {
       const bool second = 2 * t > W - 1;  // the other line was here first
       const bool ringed = 2 * t >= W + HPF;  // and its sum is in the ring
-      int cf[DPL], cr[DPL], af[DPL], ar[DPL];
+      C cf[DPL], cr[DPL], af[DPL], ar[DPL];
 #pragma unroll
-      for (int j = 0; j < DPL; ++j) af[j] = ar[j] = 0;
+      for (int j = 0; j < DPL; ++j) af[j] = ar[j] = C(0);
       cp_async_wait<HPF - 1>();  // iteration t's pixels have landed
       __syncwarp();
       {
         const char* sf = ring + (t & (HPF - 1)) * SLOT;
         const char* sr = sf + HPF * SLOT;
-        load_run<int16_t, DPL>((const int16_t*)sf + d0, cf);
-        load_run<int16_t, DPL>((const int16_t*)sr + d0, cr);
+        load_run<CT, DPL>((const CT*)sf + d0, cf);
+        load_run<CT, DPL>((const CT*)sr + d0, cr);
         if (ringed) {
-          load_run<AT, DPL>((const AT*)(sf + DP * 2) + d0, af);
-          load_run<AT, DPL>((const AT*)(sr + DP * 2) + d0, ar);
+          load_run<AT, DPL>((const AT*)(sf + CB) + d0, af);
+          load_run<AT, DPL>((const AT*)(sr + CB) + d0, ar);
         }
 #pragma unroll
-        for (int j = 0; j < DPL; ++j)  // the only mask of the step
-          if (d0 + j >= D) cf[j] = cr[j] = SENT;
+        for (int j = 0; j < DPL; ++j)  // the only int mask of the step
+          if (d0 + j >= D) cf[j] = cr[j] = sent;
       }
       __syncwarp();  // the slot is free for iteration t + HPF
       if (t + HPF < W) fetch(t + HPF);
@@ -450,13 +348,15 @@ horizontal_kernel(const int16_t* __restrict__ cost, AT* acc, int rows, int W,
         load_pixel<AT, DPL>(pf, D, d0, vec_a, af);
         load_pixel<AT, DPL>(pr, D, d0, vec_a, ar);
       }
-      int Ln[DPL];
-      sgm_step<LPP, DPL>(Lf, cf, Ln, dl, p1, p2);
+      C Ln[DPL];
+      sgm_step<LPP, DPL>(Lf, cf, Ln, dl, p1, p2, sent);
 #pragma unroll
-      for (int j = 0; j < DPL; ++j) Lf[j] = Ln[j];
-      sgm_step<LPP, DPL>(Lr, cr, Ln, dl, p1, p2);
+      for (int j = 0; j < DPL; ++j)
+        Lf[j] = FLOAT && d0 + j >= D ? sent : Ln[j];
+      sgm_step<LPP, DPL>(Lr, cr, Ln, dl, p1, p2, sent);
 #pragma unroll
-      for (int j = 0; j < DPL; ++j) Lr[j] = Ln[j];
+      for (int j = 0; j < DPL; ++j)
+        Lr[j] = FLOAT && d0 + j >= D ? sent : Ln[j];
       if (2 * t == W - 1) {  // the middle pixel of an odd width
 #pragma unroll
         for (int j = 0; j < DPL; ++j) af[j] = Lf[j] + Lr[j];
@@ -476,38 +376,79 @@ horizontal_kernel(const int16_t* __restrict__ cost, AT* acc, int rows, int W,
   }
 }
 
-// bytes of a vertical block's shared memory: the diagonal carries int
-// [2][2][CW][DP] when ndir == 3, the right-image keys int [2][keys_pitch]
-// when the launch closes with an LR check, then per column a ring of PF
-// slots, each the int16 cost and the accumulator of one pixel
+// A diagonal carry and its row's tag as one word of the edge exchange,
+// written with one store and polled with one load, so the two arrive
+// together: int, a 12-bit tag above a 20-bit value (|value| < 2^19) in 32
+// bits; f32, the tag above the float's bits in 64.
+template <typename C>
+struct Xch;
+template <>
+struct Xch<int> {
+  using Word = unsigned;
+  static constexpr unsigned TAG = 0xfffu;
+  __device__ static Word pack(unsigned tag, int v) {
+    return (tag << 20) | ((unsigned)v & 0xfffffu);
+  }
+  __device__ static unsigned tag(Word w) { return w >> 20; }
+  __device__ static int value(Word w) { return (int)(w << 12) >> 12; }
+};
+template <>
+struct Xch<float> {
+  using Word = unsigned long long;
+  static constexpr unsigned TAG = 0xffffffffu;
+  __device__ static Word pack(unsigned tag, float v) {
+    return ((Word)tag << 32) | __float_as_uint(v);
+  }
+  __device__ static unsigned tag(Word w) { return (unsigned)(w >> 32); }
+  __device__ static float value(Word w) { return __uint_as_float((unsigned)w); }
+};
+template <typename CT>
+using XchWord = typename Xch<typename Compute<CT>::type>::Word;
+
+// bytes of a vertical block's shared memory: the diagonal carries (4 bytes
+// each) [2][2][CW][DP] when ndir == 3, the right-image keys int
+// [2][keys_pitch] when the launch closes with an LR check, then per column
+// a ring of PF slots, each the cost and the accumulator of one pixel
 inline size_t vertical_smem(int vw, int DP, int D, int ndir, bool right,
-                            int acc_bytes) {
+                            int cost_bytes, int acc_bytes) {
   const int cw = strip_cols(D, vw);
   return sizeof(int) * ((ndir == 3 ? 2 * 2 * cw * DP : 0) +
                         (right ? 2 * keys_pitch(D, vw) : 0)) +
-         (size_t)cw * PF * DP * (2 + acc_bytes);
+         (size_t)cw * PF * DP * (cost_bytes + acc_bytes);
 }
 
 // B3: the NDIR (0, 1: dx 0, or 3: dx 0, +1, -1) sweeps of step dy over the
 // frames frame0.. of the int16 cost, added to acc. CLOSE: the total goes to
-// the WTA and is not stored; else it is written back to acc.
+// the WTA and is not stored; else it is written back to acc. B8a: the same
+// sweeps of an f32 or bf16 cost (CT), never CLOSE: the f32 total of the
+// launch is stored to acc.
 // grid (strips of CW columns, frames of the chunk), VW (16 or 32) warps, 64
 // registers a thread; LPP lanes a pixel, DPL disparities a lane,
 // LPP * DPL >= D.
-// xch: int [frame][strip][side][XCH_RING][LPP * DPL], zeroed before the
+// xch: word [frame][strip][side][XCH_RING][LPP * DPL], zeroed before the
 // launch; side 0 the first column's dx -1 carry, side 1 the last's dx +1.
 // rkey: int [frame][row][strip][CW + D - 1], the strip's right-image keys.
-template <typename AT, int VW, int LPP, int DPL, int NDIR, bool CLOSE>
+template <typename CT, typename AT, int VW, int LPP, int DPL, int NDIR,
+          bool CLOSE>
 __global__ void __launch_bounds__(VW * 32, 32 / VW)
-vertical_kernel(const int16_t* __restrict__ cost, AT* acc,
+vertical_kernel(const CT* __restrict__ cost, AT* acc,
                 float* __restrict__ disp, float* __restrict__ margin,
-                int* __restrict__ rkey, int* xch, int H, int W, int D, int dy,
-                int p1, int p2, int md, int uniq, int lr, int frame0) {
+                int* __restrict__ rkey, XchWord<CT>* xch, int H, int W, int D,
+                int dy, typename Compute<CT>::type p1,
+                typename Compute<CT>::type p2, int md, int uniq, int lr,
+                int frame0) {
+  using C = typename Compute<CT>::type;
+  using X = Xch<C>;
+  using Word = typename X::Word;
+  constexpr bool FLOAT = std::is_same<C, float>::value;
+  static_assert(!(FLOAT && CLOSE), "the WTA takes an integer total");
   extern __shared__ int4 vsm4[];
   constexpr int PPW = 32 / LPP;  // pixels (columns) of a warp
   constexpr int CW = VW * PPW;   // columns of the block's strip
   constexpr int DP = LPP * DPL;  // disparities a pixel's lanes hold
-  constexpr int SLOT = DP * (2 + (int)sizeof(AT));  // bytes of a ring slot
+  constexpr int CB = DP * (int)sizeof(CT);         // bytes of a ring slot:
+  constexpr int SLOT = CB + DP * (int)sizeof(AT);  // cost, then accumulator
+  const C sent = FLOAT ? C(BIGF) : C(SENT);
   const int tid = threadIdx.x, lane = tid & 31;
   const int dl = lane % LPP, d0 = dl * DPL;
   const int colb = (tid >> 5) * PPW + lane / LPP;  // column in the strip
@@ -516,8 +457,8 @@ vertical_kernel(const int16_t* __restrict__ cost, AT* acc,
   const long long b = frame0 + blockIdx.y;
   const int n_r = CW + D - 1, pitch = keys_pitch(D, VW);
   const bool right = CLOSE && lr >= 0;
-  int* Lsm = (int*)vsm4;                                // [2][2][CW][DP]
-  int* rmin = Lsm + (NDIR == 3 ? 2 * 2 * CW * DP : 0);  // [2][pitch]
+  C* Lsm = (C*)vsm4;                                            // [2][2][CW][DP]
+  int* rmin = (int*)(Lsm + (NDIR == 3 ? 2 * 2 * CW * DP : 0));  // [2][pitch]
   char* ring = (char*)(rmin + (right ? 2 * pitch : 0)) + colb * (PF * SLOT);
   if (right) {
     for (int i = tid; i < 2 * pitch; i += VW * 32) rmin[i] = RINIT;
@@ -540,12 +481,12 @@ vertical_kernel(const int16_t* __restrict__ cost, AT* acc,
   const int srcB = (kB * CW + colb + (kB == 0 ? -1 : 1)) * DP + d0;
   const int dstA = (kA * CW + colb) * DP + d0;
   const int dstB = (kB * CW + colb) * DP + d0;
-  int* xmine = xch + ((long long)blockIdx.y * gridDim.x + blockIdx.x) *
-                         (2 * XCH_RING * DP);
+  Word* xmine = xch + ((long long)blockIdx.y * gridDim.x + blockIdx.x) *
+                          (2 * XCH_RING * DP);
   // the left block's side 1 or the right block's side 0; our side 0 or 1
-  const int* xfrom =
+  const Word* xfrom =
       (edge_p ? xmine - XCH_RING * DP : xmine + 2 * XCH_RING * DP) + d0;
-  int* xto = xmine + (edge_n ? XCH_RING * DP : 0) + d0;
+  Word* xto = xmine + (edge_n ? XCH_RING * DP : 0) + d0;
 
   // this column's pixel of the sweep's current row, and of the next row to
   // fetch, as offsets into the volume
@@ -555,9 +496,9 @@ vertical_kernel(const int16_t* __restrict__ cost, AT* acc,
   long long obase = o * D;
   // a pixel's D values go in 16-byte pieces where every pixel starts on a
   // 16-byte boundary, one piece a lane; else lane by lane with plain loads
-  const bool vec_c = (D * 2) % 16 == 0;
+  const bool vec_c = (D * (int)sizeof(CT)) % 16 == 0;
   const bool vec_a = (D * (int)sizeof(AT)) % 16 == 0;
-  const bool piece_c = active && dl < D * 2 / 16;
+  const bool piece_c = active && dl < D * (int)sizeof(CT) / 16;
   const bool piece_a = active && dl < D * (int)sizeof(AT) / 16;
   auto fetch = [&](int r, long long fbase) {  // row r into slot r % PF
     char* slot = ring + (r & (PF - 1)) * SLOT;
@@ -568,18 +509,16 @@ vertical_kernel(const int16_t* __restrict__ cost, AT* acc,
       } else if (active) {
 #pragma unroll
         for (int j = 0; j < DPL; ++j)
-          if (d0 + j < D) ((int16_t*)slot)[d0 + j] = cost[fbase + d0 + j];
+          if (d0 + j < D) ((CT*)slot)[d0 + j] = cost[fbase + d0 + j];
       }
     }
     if (vec_a) {
       if (piece_a)
-        cp_async16(slot + DP * 2 + dl * 16,
-                   (const char*)(acc + fbase) + dl * 16);
+        cp_async16(slot + CB + dl * 16, (const char*)(acc + fbase) + dl * 16);
     } else if (active) {
 #pragma unroll
       for (int j = 0; j < DPL; ++j)
-        if (d0 + j < D)
-          ((AT*)(slot + DP * 2))[d0 + j] = acc[fbase + d0 + j];
+        if (d0 + j < D) ((AT*)(slot + CB))[d0 + j] = acc[fbase + d0 + j];
     }
   };
 #pragma unroll
@@ -588,9 +527,9 @@ vertical_kernel(const int16_t* __restrict__ cost, AT* acc,
     cp_async_commit();
   }
 
-  int L0[DPL];  // carries start at zero
+  C L0[DPL];  // carries start at zero (f32: the sentinel past D)
 #pragma unroll
-  for (int j = 0; j < DPL; ++j) L0[j] = 0;
+  for (int j = 0; j < DPL; ++j) L0[j] = FLOAT && d0 + j >= D ? sent : C(0);
   // the WTA's results of row t, kept by lane t % LPP of the pixel until
   // the pixel's lanes finish LPP rows together
   int w_key = 0, w_m1 = 0, w_p1 = 0, w_sec = 0;
@@ -606,94 +545,118 @@ vertical_kernel(const int16_t* __restrict__ cost, AT* acc,
       (rk - rk_step)[tid] = rm[tid];
       rm[tid] = RINIT;
     }
-    int c[DPL], a[DPL];
+    C c[DPL], a[DPL];
     cp_async_wait<PF - 1>();  // row t has landed
     __syncwarp();
     {
       const char* slot = ring + (t & (PF - 1)) * SLOT;
-      if (NDIR > 0) load_run<int16_t, DPL>((const int16_t*)slot + d0, c);
-      load_run<AT, DPL>((const AT*)(slot + DP * 2) + d0, a);
+      if (NDIR > 0) load_run<CT, DPL>((const CT*)slot + d0, c);
+      load_run<AT, DPL>((const AT*)(slot + CB) + d0, a);
 #pragma unroll
-      for (int j = 0; j < DPL; ++j) {  // the only masks of the row
-        if (NDIR == 0 || d0 + j >= D) c[j] = SENT;
-        if (d0 + j >= D) a[j] = SENT;
+      for (int j = 0; j < DPL; ++j) {  // the only int masks of the row
+        if (NDIR == 0 || d0 + j >= D) c[j] = sent;
+        if (d0 + j >= D) a[j] = sent;
       }
     }
     __syncwarp();  // the slot is free for row t + PF
     if (t + PF < H) fetch(t + PF, obase + PF * vol_step);
     cp_async_commit();
 
-    int total[DPL], Lp[DPL], Ln[DPL];
+    C total[DPL], Lp[DPL], Ln[DPL];
 #pragma unroll
     for (int j = 0; j < DPL; ++j) total[j] = a[j];
     if (NDIR == 3) {
-      const unsigned tag = (unsigned)t & 0xfffu;  // of the row before
-      const unsigned tag_out = (unsigned)(t + 1) & 0xfffu;
-      int* cur = Lsm + (t & 1) * (2 * CW * DP);
-      const int* prev = Lsm + ((t - 1) & 1) * (2 * CW * DP);
-      const int* from = xfrom + ((t - 1) & (XCH_RING - 1)) * DP;
-      int* to = xto + (t & (XCH_RING - 1)) * DP;
+      const unsigned tag = (unsigned)t & X::TAG;  // of the row before
+      const unsigned tag_out = (unsigned)(t + 1) & X::TAG;
+      C* cur = Lsm + (t & 1) * (2 * CW * DP);
+      const C* prev = Lsm + ((t - 1) & 1) * (2 * CW * DP);
+      const Word* from = xfrom + ((t - 1) & (XCH_RING - 1)) * DP;
+      Word* to = xto + (t & (XCH_RING - 1)) * DP;
       // the neighbour's words, asked for before direction kA's step
-      unsigned pw[DPL];
+      Word pw[DPL];
       const bool polls = edge && t > 0;
       if (polls) {
 #pragma unroll
         for (int j = 0; j < DPL; ++j)
-          pw[j] = d0 + j < D ? *(const volatile unsigned*)(from + j) : 0u;
+          pw[j] = d0 + j < D ? *(const volatile Word*)(from + j) : Word(0);
       }
       // direction kA
       if (t == 0 || zeroA) {
 #pragma unroll
-        for (int j = 0; j < DPL; ++j) Lp[j] = 0;  // the zero lateral fill
+        for (int j = 0; j < DPL; ++j)  // the zero lateral fill
+          Lp[j] = FLOAT && d0 + j >= D ? sent : C(0);
       } else {
-        load_run<int, DPL>(prev + srcA, Lp);
+        load_run<C, DPL>(prev + srcA, Lp);
       }
-      sgm_step<LPP, DPL>(Lp, c, Ln, dl, p1, p2);
-      store_run<int, DPL>(cur + dstA, Ln);
+      sgm_step<LPP, DPL>(Lp, c, Ln, dl, p1, p2, sent);
 #pragma unroll
-      for (int j = 0; j < DPL; ++j) total[j] += Ln[j];
+      for (int j = 0; j < DPL; ++j)
+        if (FLOAT && d0 + j >= D) Ln[j] = sent;
+      store_run<C, DPL>(cur + dstA, Ln);
+      if constexpr (!FLOAT) {
+#pragma unroll
+        for (int j = 0; j < DPL; ++j) total[j] += Ln[j];
+      }
       if (edge) {
 #pragma unroll
         for (int j = 0; j < DPL; ++j)
-          if (d0 + j < D)
-            *(volatile unsigned*)(to + j) =
-                (tag_out << 20) | ((unsigned)Ln[j] & 0xfffffu);
+          if (d0 + j < D) *(volatile Word*)(to + j) = X::pack(tag_out, Ln[j]);
       }
       // direction kB
       if (t == 0 || zeroB) {
 #pragma unroll
-        for (int j = 0; j < DPL; ++j) Lp[j] = 0;
+        for (int j = 0; j < DPL; ++j)
+          Lp[j] = FLOAT && d0 + j >= D ? sent : C(0);
       } else if (edge) {
 #pragma unroll
         for (int j = 0; j < DPL; ++j) {
-          int v = SENT;
+          C v = sent;
           if (d0 + j < D) {
-            unsigned w = pw[j], spins = 0;
-            while ((w >> 20) != tag) {
+            Word w = pw[j];
+            unsigned spins = 0;
+            while (X::tag(w) != tag) {
               if (++spins > SPIN_LIMIT) __trap();
-              w = *(const volatile unsigned*)(from + j);
+              w = *(const volatile Word*)(from + j);
             }
-            v = (int)(w << 12) >> 12;  // the low 20 bits, signed
+            v = X::value(w);
           }
           Lp[j] = v;
         }
       } else {
-        load_run<int, DPL>(prev + srcB, Lp);
+        load_run<C, DPL>(prev + srcB, Lp);
       }
-      sgm_step<LPP, DPL>(Lp, c, Ln, dl, p1, p2);
-      store_run<int, DPL>(cur + dstB, Ln);
+      sgm_step<LPP, DPL>(Lp, c, Ln, dl, p1, p2, sent);
 #pragma unroll
-      for (int j = 0; j < DPL; ++j) total[j] += Ln[j];
+      for (int j = 0; j < DPL; ++j)
+        if (FLOAT && d0 + j >= D) Ln[j] = sent;
+      store_run<C, DPL>(cur + dstB, Ln);
+      if constexpr (!FLOAT) {
+#pragma unroll
+        for (int j = 0; j < DPL; ++j) total[j] += Ln[j];
+      }
     }
     if (NDIR > 0) {
-      sgm_step<LPP, DPL>(L0, c, Ln, dl, p1, p2);
+      sgm_step<LPP, DPL>(L0, c, Ln, dl, p1, p2, sent);
 #pragma unroll
       for (int j = 0; j < DPL; ++j) {
-        L0[j] = Ln[j];
+        L0[j] = FLOAT && d0 + j >= D ? sent : Ln[j];
         total[j] += Ln[j];
       }
     }
-    if (!CLOSE) {
+    if constexpr (FLOAT) {
+      if (NDIR == 3) {
+        // the diagonals after the vertical, dx +1 (direction 0) then dx -1,
+        // as the TPU adds them, read back from this lane's own stores
+        const C* cur = Lsm + (t & 1) * (2 * CW * DP);
+        load_run<C, DPL>(cur + colb * DP + d0, Lp);
+#pragma unroll
+        for (int j = 0; j < DPL; ++j) total[j] += Lp[j];
+        load_run<C, DPL>(cur + (CW + colb) * DP + d0, Lp);
+#pragma unroll
+        for (int j = 0; j < DPL; ++j) total[j] += Lp[j];
+      }
+    }
+    if constexpr (!CLOSE) {
       if (active) {
         if (DPL == 4 && vec_a) {  // D is a multiple of 4: no run straddles
           if (d0 < D) store_run<AT, DPL>(acc + obase + d0, total);
@@ -801,52 +764,18 @@ __global__ void lr_kernel(float* __restrict__ disp,
   if (!ok) disp[i] = (float)(md - 1);
 }
 
-template <typename CT, typename AT, typename C, int DPL>
-int launch_sweep(const void* cost, const void* acc_in, void* acc_out, int B,
-                 int H, int W, int D, int dy, int dx, C p1, C p2,
-                 cudaStream_t s) {
-  int n_lines = dy == 0 ? H : (dx == 0 ? W : W + H - 1);
-  const int warps = 8;
-  dim3 grid((n_lines + warps - 1) / warps, B);
-  sweep_kernel<CT, AT, C, DPL><<<grid, warps * 32, 0, s>>>(
-      (const CT*)cost, (const AT*)acc_in, (AT*)acc_out, H, W, D, dy, dx, p1,
-      p2, n_lines);
-  return (int)cudaGetLastError();
-}
-
-template <typename CT, typename AT, typename C>
-int sweep_dpl(const void* cost, const void* acc_in, void* acc_out, int B,
-              int H, int W, int D, int dy, int dx, C p1, C p2,
-              cudaStream_t s) {
-  switch ((D + 31) / 32) {
-    case 1:
-      return launch_sweep<CT, AT, C, 1>(cost, acc_in, acc_out, B, H, W, D,
-                                        dy, dx, p1, p2, s);
-    case 2:
-      return launch_sweep<CT, AT, C, 2>(cost, acc_in, acc_out, B, H, W, D,
-                                        dy, dx, p1, p2, s);
-    case 3:
-      return launch_sweep<CT, AT, C, 3>(cost, acc_in, acc_out, B, H, W, D,
-                                        dy, dx, p1, p2, s);
-    case 4:
-      return launch_sweep<CT, AT, C, 4>(cost, acc_in, acc_out, B, H, W, D,
-                                        dy, dx, p1, p2, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
 // B2's launch: as many warps as the card holds at once, or, where the row
 // groups need several rounds, as many as share them out evenly, each warp
 // taking its groups in turn. plan, when not NULL, receives four host ints:
 // blocks per multiprocessor, multiprocessors, blocks launched, rounds.
-template <typename AT, int LPP, int DPL>
+template <typename CT, typename AT, int LPP, int DPL>
 int launch_horizontal(const void* cost, void* acc, long long rows, int W,
-                      int D, int p1, int p2, int* plan, cudaStream_t s) {
-  auto kernel = horizontal_kernel<AT, LPP, DPL>;
+                      int D, float p1, float p2, int* plan, cudaStream_t s) {
+  using C = typename Compute<CT>::type;
+  auto kernel = horizontal_kernel<CT, AT, LPP, DPL>;
   const int ppw = 32 / LPP;
   const size_t smem =
-      (size_t)HW * ppw * 2 * HPF * LPP * DPL * (2 + sizeof(AT));
+      (size_t)HW * ppw * 2 * HPF * LPP * DPL * (sizeof(CT) + sizeof(AT));
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -872,26 +801,27 @@ int launch_horizontal(const void* cost, void* acc, long long rows, int W,
     plan[3] = (int)rounds;
   }
   if (blocks < 1) return (int)cudaSuccess;
-  kernel<<<blocks, HW * 32, smem, s>>>((const int16_t*)cost, (AT*)acc,
-                                       (int)rows, W, D, p1, p2);
+  kernel<<<blocks, HW * 32, smem, s>>>((const CT*)cost, (AT*)acc, (int)rows,
+                                       W, D, (C)p1, (C)p2);
   return (int)cudaGetLastError();
 }
 
 // lanes a pixel and disparities a lane by D, as lanes_per_pixel
-template <typename AT>
+template <typename CT, typename AT>
 int horizontal_shape(const void* cost, void* acc, long long rows, int W,
-                     int D, int p1, int p2, int* plan, cudaStream_t s) {
+                     int D, float p1, float p2, int* plan, cudaStream_t s) {
   if (D < 1 || D > 128 || W < 1) return (int)cudaErrorInvalidValue;
   if (D <= 32)
-    return launch_horizontal<AT, 8, 4>(cost, acc, rows, W, D, p1, p2, plan,
-                                       s);
+    return launch_horizontal<CT, AT, 8, 4>(cost, acc, rows, W, D, p1, p2,
+                                           plan, s);
   if (D <= 64)
-    return launch_horizontal<AT, 16, 4>(cost, acc, rows, W, D, p1, p2, plan,
-                                        s);
+    return launch_horizontal<CT, AT, 16, 4>(cost, acc, rows, W, D, p1, p2,
+                                            plan, s);
   if (D <= 96)
-    return launch_horizontal<AT, 32, 3>(cost, acc, rows, W, D, p1, p2, plan,
-                                        s);
-  return launch_horizontal<AT, 32, 4>(cost, acc, rows, W, D, p1, p2, plan, s);
+    return launch_horizontal<CT, AT, 32, 3>(cost, acc, rows, W, D, p1, p2,
+                                            plan, s);
+  return launch_horizontal<CT, AT, 32, 4>(cost, acc, rows, W, D, p1, p2, plan,
+                                          s);
 }
 
 // Warps of a vertical block for B frames of width W: 32 (one block a
@@ -900,7 +830,8 @@ int horizontal_shape(const void* cost, void* acc, long long rows, int W,
 // fifths full, else 16 (two blocks a multiprocessor). Measured at 1080p,
 // D = 64 on 132 multiprocessors: a launch of 32-warp blocks takes the same
 // time for one frame as for the four it can hold, one of 16-warp blocks
-// time in proportion to its frames.
+// time in proportion to its frames. (A float cost's 32-warp block takes
+// 192 KB of shared memory at every D, so it too is one a multiprocessor.)
 int vertical_warps(int B, int W, int D) {
   static int sms = 0;  // of the current device, read once
   if (sms == 0) {
@@ -917,27 +848,31 @@ int vertical_warps(int B, int W, int D) {
   return 5LL * B * strips >= 4LL * sms * launches ? 32 : 16;
 }
 
-template <typename AT, int VW, int LPP, int DPL, int NDIR, bool CLOSE>
+template <typename CT, typename AT, int VW, int LPP, int DPL, int NDIR,
+          bool CLOSE>
 int launch_vertical(const void* cost, void* acc, float* disp, float* margin,
-                    int* rkey, int* xch, int B, int H, int W, int D, int dy,
-                    int p1, int p2, int md, int uniq, int lr, int* plan,
+                    int* rkey, void* xch, int B, int H, int W, int D, int dy,
+                    float p1, float p2, int md, int uniq, int lr, int* plan,
                     cudaStream_t s) {
-  auto kernel = vertical_kernel<AT, VW, LPP, DPL, NDIR, CLOSE>;
+  using C = typename Compute<CT>::type;
+  auto kernel = vertical_kernel<CT, AT, VW, LPP, DPL, NDIR, CLOSE>;
   const int DP = LPP * DPL;
-  const size_t smem =
-      vertical_smem(VW, DP, D, NDIR, CLOSE && lr >= 0, (int)sizeof(AT));
+  const size_t smem = vertical_smem(VW, DP, D, NDIR, CLOSE && lr >= 0,
+                                    (int)sizeof(CT), (int)sizeof(AT));
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int cw = strip_cols(D, VW);
   const int strips = (W + cw - 1) / cw;
-  const int16_t* cp = (const int16_t*)cost;
+  const CT* cp = (const CT*)cost;
   AT* ap = (AT*)acc;
+  XchWord<CT>* xp = (XchWord<CT>*)xch;
+  C cp1 = (C)p1, cp2 = (C)p2;
   if (NDIR < 3) {
     // no carry crosses a column: blocks are independent
     int frame0 = 0;
     kernel<<<dim3(strips, B), VW * 32, smem, s>>>(
-        cp, ap, disp, margin, rkey, xch, H, W, D, dy, p1, p2, md, uniq, lr,
+        cp, ap, disp, margin, rkey, xp, H, W, D, dy, cp1, cp2, md, uniq, lr,
         frame0);
     return (int)cudaGetLastError();
   }
@@ -966,12 +901,13 @@ int launch_vertical(const void* cost, void* acc, float* disp, float* margin,
   if (chunk < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   for (int frame0 = 0; frame0 < B; frame0 += chunk) {
     const int n = B - frame0 < chunk ? B - frame0 : chunk;
-    if ((e = cudaMemsetAsync(
-             xch, 0, sizeof(int) * (size_t)n * strips * 2 * XCH_RING * DP,
-             s)) != cudaSuccess)
+    if ((e = cudaMemsetAsync(xp, 0,
+                             sizeof(XchWord<CT>) * (size_t)n * strips * 2 *
+                                 XCH_RING * DP,
+                             s)) != cudaSuccess)
       return (int)e;
-    void* args[] = {&cp,  &ap, &disp, &margin, &rkey, &xch, &H,  &W,
-                    &D,   &dy, &p1,   &p2,     &md,   &uniq, &lr, &frame0};
+    void* args[] = {&cp,  &ap,  &disp, &margin, &rkey, &xp, &H,  &W,
+                    &D,   &dy,  &cp1,  &cp2,    &md,   &uniq, &lr, &frame0};
     if ((e = cudaLaunchCooperativeKernel((void*)kernel, dim3(strips, n),
                                          dim3(VW * 32), args, smem, s)) !=
         cudaSuccess)
@@ -980,35 +916,43 @@ int launch_vertical(const void* cost, void* acc, float* disp, float* margin,
   return (int)cudaGetLastError();
 }
 
-template <typename AT, int VW, int LPP, int DPL>
+// The launch's instantiation by its directions and whether it closes: an
+// int16 cost takes every mode of B3; a float cost (B8a) the sweeps of 1 or
+// 3 directions that store the total, never the WTA.
+template <typename CT, typename AT, int VW, int LPP, int DPL>
 int vertical_mode(const void* cost, void* acc, float* disp, float* margin,
-                  int* rkey, int* xch, int B, int H, int W, int D,
-                  int num_dirs, int dy, int close, int p1, int p2, int md,
+                  int* rkey, void* xch, int B, int H, int W, int D,
+                  int num_dirs, int dy, int close, float p1, float p2, int md,
                   int uniq, int lr, int* plan, cudaStream_t s) {
 #define V3D_VERTICAL(NDIR, CLOSE)                                         \
-  return launch_vertical<AT, VW, LPP, DPL, NDIR, CLOSE>(                  \
+  return launch_vertical<CT, AT, VW, LPP, DPL, NDIR, CLOSE>(              \
       cost, acc, disp, margin, rkey, xch, B, H, W, D, dy, p1, p2, md,     \
       uniq, lr, plan, s)
-  if (num_dirs == 0 && close) V3D_VERTICAL(0, true);
-  if (num_dirs == 1 && close) V3D_VERTICAL(1, true);
-  if (num_dirs == 1 && !close) V3D_VERTICAL(1, false);
-  if (num_dirs == 3 && close) V3D_VERTICAL(3, true);
-  if (num_dirs == 3 && !close) V3D_VERTICAL(3, false);
+  if constexpr (std::is_same<CT, int16_t>::value) {
+    if (num_dirs == 0 && close) V3D_VERTICAL(0, true);
+    if (num_dirs == 1 && close) V3D_VERTICAL(1, true);
+    if (num_dirs == 1 && !close) V3D_VERTICAL(1, false);
+    if (num_dirs == 3 && close) V3D_VERTICAL(3, true);
+    if (num_dirs == 3 && !close) V3D_VERTICAL(3, false);
+  } else {
+    if (num_dirs == 1 && !close) V3D_VERTICAL(1, false);
+    if (num_dirs == 3 && !close) V3D_VERTICAL(3, false);
+  }
 #undef V3D_VERTICAL
   return (int)cudaErrorInvalidValue;
 }
 
 // lanes a pixel and disparities a lane by D, as lanes_per_pixel
-template <typename AT>
+template <typename CT, typename AT>
 int vertical_shape(const void* cost, void* acc, float* disp, float* margin,
-                   int* rkey, int* xch, int B, int H, int W, int D,
-                   int num_dirs, int dy, int close, int p1, int p2, int md,
-                   int uniq, int lr, int* plan, cudaStream_t s) {
+                   int* rkey, void* xch, int B, int H, int W, int D,
+                   int num_dirs, int dy, int close, float p1, float p2,
+                   int md, int uniq, int lr, int* plan, cudaStream_t s) {
 #define V3D_SHAPE(LPP, DPL)                                               \
-  return wide ? vertical_mode<AT, 32, LPP, DPL>(                          \
+  return wide ? vertical_mode<CT, AT, 32, LPP, DPL>(                      \
                     cost, acc, disp, margin, rkey, xch, B, H, W, D,       \
                     num_dirs, dy, close, p1, p2, md, uniq, lr, plan, s)   \
-              : vertical_mode<AT, 16, LPP, DPL>(                          \
+              : vertical_mode<CT, AT, 16, LPP, DPL>(                      \
                     cost, acc, disp, margin, rkey, xch, B, H, W, D,       \
                     num_dirs, dy, close, p1, p2, md, uniq, lr, plan, s)
   if (D < 1 || D > 128) return (int)cudaErrorInvalidValue;
@@ -1022,76 +966,72 @@ int vertical_shape(const void* cost, void* acc, float* disp, float* margin,
 
 }  // namespace
 
-// B8a: one SGM direction (dy, dx) over the (B, H, W, D) f32 or bf16 cost
-// (cost_type), added into the f32 acc_out in f32; acc_in is NULL for a
-// fresh accumulation or equal to acc_out.
-extern "C" int v3d_sgm_sweep(void* cost, void* acc_in, void* acc_out, int B,
-                             int H, int W, int D, int dy, int dx, float p1,
-                             float p2, int cost_type, int acc_type,
-                             void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (cost_type == T_F32 && acc_type == T_F32)
-    return sweep_dpl<float, float, float>(cost, acc_in, acc_out, B, H, W, D,
-                                          dy, dx, p1, p2, s);
-  if (cost_type == T_BF16 && acc_type == T_F32)
-    return sweep_dpl<__nv_bfloat16, float, float>(cost, acc_in, acc_out, B, H,
-                                                  W, D, dy, dx, p1, p2, s);
-  return (int)cudaErrorInvalidValue;
-}
-
 // B2: the sum of the left-to-right and the right-to-left path over the
-// (B, H, W, D) int16 cost into acc, int16 or f32 (acc_type), every element
-// written; one launch. plan as launch_horizontal.
+// (B, H, W, D) cost into acc, every element written; one launch. An int16
+// cost (cost_type) with whole penalties into an int16 or f32 acc
+// (acc_type); an f32 or bf16 cost into an f32 acc (B8a's horizontal pair).
+// plan as launch_horizontal.
 extern "C" int v3d_sgm_horizontal(void* cost, void* acc, int B, int H, int W,
-                                  int D, int p1, int p2, int acc_type,
-                                  void* plan, void* stream) {
+                                  int D, float p1, float p2, int cost_type,
+                                  int acc_type, void* plan, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const long long rows = (long long)B * H;
-  if (acc_type == T_I16)
-    return horizontal_shape<int16_t>(cost, acc, rows, W, D, p1, p2,
-                                     (int*)plan, s);
-  if (acc_type == T_F32)
-    return horizontal_shape<float>(cost, acc, rows, W, D, p1, p2, (int*)plan,
-                                   s);
+  int* pl = (int*)plan;
+  if (cost_type == T_I16 && acc_type == T_I16)
+    return horizontal_shape<int16_t, int16_t>(cost, acc, rows, W, D, p1, p2,
+                                              pl, s);
+  if (cost_type == T_I16 && acc_type == T_F32)
+    return horizontal_shape<int16_t, float>(cost, acc, rows, W, D, p1, p2, pl,
+                                            s);
+  if (cost_type == T_F32 && acc_type == T_F32)
+    return horizontal_shape<float, float>(cost, acc, rows, W, D, p1, p2, pl,
+                                          s);
+  if (cost_type == T_BF16 && acc_type == T_F32)
+    return horizontal_shape<Bf16Bits, float>(cost, acc, rows, W, D, p1, p2,
+                                             pl, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // B3, one launch per sweep step dy: the num_dirs (0; 1: vertical; 3:
-// vertical and both diagonals) sweeps of step dy over the (B, H, W, D) int16
-// cost, added to the int16 or f32 (acc_type) accumulator of the horizontal
-// paths. close = 0 writes the sum back to acc. close = 1 leaves acc as it
-// is and does the left-image WTA on the total: f32 disparity (B, H, W)
-// before the LR check, the f32 uniqueness margin when margin is not NULL
-// and, when lr >= 0, each strip's right-image keys min v*256 + d into rkey,
-// B * v3d_sgm_vertical_keys(H, W, D) ints, every one written. xch is
-// scratch of v3d_sgm_vertical_scratch(B, W) ints. plan, when not NULL,
+// vertical and both diagonals) sweeps of step dy over the (B, H, W, D) cost
+// of cost_type, added to the accumulator of the horizontal paths (acc_type).
+// An int16 cost with whole penalties, int16 or f32 acc: close = 0 writes
+// the sum back to acc. close = 1 leaves acc as it is and does the
+// left-image WTA on the total: f32 disparity (B, H, W) before the LR
+// check, the f32 uniqueness margin when margin is not NULL and, when lr >=
+// 0, each strip's right-image keys min v*256 + d into rkey, B *
+// v3d_sgm_vertical_keys(H, W, D) ints, every one written. An f32 or bf16
+// cost (B8a), f32 acc, num_dirs 1 or 3, close = 0: the f32 total is
+// stored to acc; disp, margin and rkey are not used. xch is scratch of
+// v3d_sgm_vertical_scratch(B, W, cost_type) ints. plan, when not NULL,
 // receives six host ints of a 3-direction launch: blocks per
 // multiprocessor, multiprocessors, strips per frame, frames per chunk,
 // chunks, columns per block.
 extern "C" int v3d_sgm_vertical(void* cost, void* acc, void* disp,
                                 void* margin, void* rkey, void* xch, int B,
                                 int H, int W, int D, int num_dirs, int dy,
-                                int close, int p1, int p2, int md, int uniq,
-                                int lr, int acc_type, void* plan,
-                                void* stream) {
-  float* dp = (float*)disp;
-  float* mg = (float*)margin;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (acc_type == T_I16)
-    return vertical_shape<int16_t>(cost, acc, dp, mg, (int*)rkey, (int*)xch, B,
-                                 H, W, D, num_dirs, dy, close, p1, p2, md,
-                                 uniq, lr, (int*)plan, s);
-  if (acc_type == T_F32)
-    return vertical_shape<float>(cost, acc, dp, mg, (int*)rkey, (int*)xch, B, H,
-                               W, D, num_dirs, dy, close, p1, p2, md, uniq,
-                               lr, (int*)plan, s);
+                                int close, float p1, float p2, int md,
+                                int uniq, int lr, int cost_type, int acc_type,
+                                void* plan, void* stream) {
+#define V3D_TYPES(CT, AT)                                                  \
+  return vertical_shape<CT, AT>(cost, acc, (float*)disp, (float*)margin,   \
+                                (int*)rkey, xch, B, H, W, D, num_dirs, dy, \
+                                close, p1, p2, md, uniq, lr, (int*)plan,   \
+                                (cudaStream_t)stream)
+  if (cost_type == T_I16 && acc_type == T_I16) V3D_TYPES(int16_t, int16_t);
+  if (cost_type == T_I16 && acc_type == T_F32) V3D_TYPES(int16_t, float);
+  if (cost_type == T_F32 && acc_type == T_F32) V3D_TYPES(float, float);
+  if (cost_type == T_BF16 && acc_type == T_F32) V3D_TYPES(Bf16Bits, float);
+#undef V3D_TYPES
   return (int)cudaErrorInvalidValue;
 }
 
 // ints of edge-exchange scratch that v3d_sgm_vertical needs for B frames of
-// width W (at the narrowest strip and the widest pixel, 128 disparities)
-extern "C" int v3d_sgm_vertical_scratch(int B, int W) {
-  return B * ((W + 15) / 16) * 2 * XCH_RING * 128;
+// width W (at the narrowest strip and the widest pixel, 128 disparities):
+// a 32-bit word a carry for an int16 cost, a 64-bit one for a float cost
+extern "C" int v3d_sgm_vertical_scratch(int B, int W, int cost_type) {
+  return B * ((W + 15) / 16) * 2 * XCH_RING * 128 *
+         (cost_type == T_I16 ? 1 : 2);
 }
 
 // ints of right-image keys per frame that a closing v3d_sgm_vertical on B

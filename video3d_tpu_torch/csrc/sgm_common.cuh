@@ -1,16 +1,29 @@
-// Device helpers shared by the SGM sweep kernels B2, B3 (sgm.cu) and B8c
-// (wmajor.cu): a pixel's D disparities held by lanes_per_pixel lanes of a
-// warp, three or four adjacent ones a lane; the min over D as a shuffle
+// Device helpers shared by the SGM sweep kernels B2, B3, B8a (sgm.cu) and
+// B8c (wmajor.cu): a pixel's D disparities held by lanes_per_pixel lanes of
+// a warp, three or four adjacent ones a lane; the min over D as a shuffle
 // butterfly, the d-1/d+1 neighbours over shuffles; asynchronous copies into
 // shared memory.
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace v3dsgm {
 
 constexpr int SENT = 1 << 20;  // integer carry sentinel past both ends of d
+constexpr float BIGF = 1e9f;   // f32 carry sentinel (the TPU kernel's)
 constexpr unsigned FULL = 0xffffffffu;
+
+// a bf16 cost value as its 16 bits (the top half of an f32's)
+struct Bf16Bits { uint16_t x; };
+
+// the step's arithmetic for a cost type: int32 for int16 (exact), else f32
+template <typename CT>
+struct Compute { using type = int; };
+template <>
+struct Compute<float> { using type = float; };
+template <>
+struct Compute<Bf16Bits> { using type = float; };
 
 // Lanes of a warp that share one pixel, each with three or four adjacent
 // disparities (DPL: 4, or 3 for 64 < D <= 96): a warp holds 4, 2 or 1

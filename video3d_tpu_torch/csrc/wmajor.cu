@@ -103,17 +103,10 @@ namespace {
 
 using namespace v3dsgm;
 
-constexpr float BIGF = 1e9f;
 constexpr int WT = 256;  // threads of a B8c block: R rows x LPP lanes
 
 // type codes of the C interface
 enum { T_I16 = 0, T_F32 = 1 };
-
-// the step's arithmetic for a cost type: int32 for int16 (exact), else f32
-template <typename CT>
-struct Compute { using type = int; };
-template <>
-struct Compute<float> { using type = float; };
 
 // Shared bytes a B8c block may take so that two blocks share a
 // multiprocessor (228 KB, 1 KB of it reserved per block).

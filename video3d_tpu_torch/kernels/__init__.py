@@ -52,9 +52,13 @@ Every TPU kernel of the JAX package (each function reaching
                                                               bf16 on wgmma with TMA-fed K/V
                                                               tiles, f32 on the CUDA cores; one
                                                               launch count)
- B8a  kernels/sgm.py:119 _directional_pass                    csrc/sgm.cu (sweep_kernel, f32 or
-      (via sgm_aggregate_pallas :148)                         bf16 cost), kernels/sgm.py
-                                                              sgm_aggregate_pallas
+ B8a  kernels/sgm.py:119 _directional_pass                    csrc/sgm.cu, kernels/sgm.py
+      (via sgm_aggregate_pallas :148)                         sgm_aggregate_pallas (redesigned:
+                                                              B2's and B3's kernels on an f32 or
+                                                              bf16 cost, the horizontal pair in
+                                                              one launch and one launch per
+                                                              vertical sweep step storing the
+                                                              f32 total: 3 launches at 8 paths)
  B8b  kernels/sgm.py:254,279 transpose_to/from_wmajor         csrc/wmajor.cu, kernels/wmajor.py
  B8c  kernels/sgm.py:391 _directional_pass_wmajor             csrc/wmajor.cu, kernels/wmajor.py
  P    tools/probe_i16.py:34 run (toy kernels :50-70)          csrc/probe_i16.cu,

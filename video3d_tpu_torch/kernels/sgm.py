@@ -1,19 +1,20 @@
 """Kernel B2, B3 and B8a wrappers: SGM sweeps and winner-take-all.
 
 CUDA source: ``video3d_tpu_torch/csrc/sgm.cu``: one horizontal kernel that
-runs a row's two directions from its two ends in a single launch (B2), one
-sweep kernel for a single direction of a float cost (B8a), and one vertical
-kernel that runs every direction of one sweep step ``dy`` in a single
-launch and, in the launch that closes the mode, the WTA on the total it
-holds in registers (B3), with a small LR-check kernel after it. B2
-replaces the TPU kernel ``video3d_tpu/kernels/sgm.py
-_directional_pass_dmajor`` (the forward and backward horizontal sweeps,
-int16 or f32 accumulator); B3 replaces ``sgm_wta_pallas_dmajor`` (the
-vertical sweeps of the mode -- top-down for 5 paths, top-down then
-bottom-up for 4 and 8 -- plus WTA); B8a replaces ``_directional_pass``,
-the sweeps of ``sgm_aggregate_pallas`` on an f32 or bf16 cost. Volumes are
-in the port's ``(B, H, W, D)`` layout; the plain twins are
-:func:`video3d_tpu_torch.ops.stereo.sgm_sweep_dmajor`,
+runs a row's two directions from its two ends in a single launch (B2), and
+one vertical kernel that runs every direction of one sweep step ``dy`` in
+a single launch and, in the launch that closes the mode, the WTA on the
+total it holds in registers (B3), with a small LR-check kernel after it.
+B8a is the same two kernels on an f32 or bf16 cost: the horizontal pair in
+one launch, then one vertical launch per sweep step that stores the f32
+total (1, 2 or 3 launches at 2, 5 or 4 and 8 paths). B2 replaces the TPU
+kernel ``video3d_tpu/kernels/sgm.py _directional_pass_dmajor`` (the
+forward and backward horizontal sweeps, int16 or f32 accumulator); B3
+replaces ``sgm_wta_pallas_dmajor`` (the vertical sweeps of the mode --
+top-down for 5 paths, top-down then bottom-up for 4 and 8 -- plus WTA);
+B8a replaces ``_directional_pass``, the sweeps of ``sgm_aggregate_pallas``
+on an f32 or bf16 cost. Volumes are in the port's ``(B, H, W, D)`` layout;
+the plain twins are :func:`video3d_tpu_torch.ops.stereo.sgm_sweep_dmajor`,
 :func:`~video3d_tpu_torch.ops.stereo.sgm_vertical_wta_dmajor` and
 :func:`~video3d_tpu_torch.ops.stereo.sgm_aggregate` on permuted views.
 """
@@ -36,12 +37,17 @@ from video3d_tpu_torch.ops.stereo import (SGBMParams, acc_dtype_for_params,
 sweep_launches = 0  # B2: calls that launched the CUDA horizontal sweeps
 wta_launches = 0  # B3: calls that launched the CUDA vertical sweeps + WTA
 aggregate_launches = 0  # B8a: calls that launched the CUDA float sweeps
-# B3's last 3-direction launch: (blocks per multiprocessor, multiprocessors,
-# strips per frame, frames per chunk, chunks, columns per block), or None
+# the last 3-direction vertical launch (B3's or B8a's): (blocks per
+# multiprocessor, multiprocessors, strips per frame, frames per chunk,
+# chunks, columns per block), or None
 vertical_plan = None
-# B2's last launch: (blocks per multiprocessor, multiprocessors, blocks
-# launched, rounds of row groups a warp takes), or None
+# the last horizontal launch (B2's or B8a's): (blocks per multiprocessor,
+# multiprocessors, blocks launched, rounds of row groups a warp takes), or
+# None
 horizontal_plan = None
+# B8a's last call: (device kernels it launched, vertical sweep steps), or
+# None
+aggregate_plan = None
 
 # dtype codes of the C interface
 _CODE = {torch.int16: 0, torch.float32: 1, torch.bfloat16: 2}
@@ -76,34 +82,37 @@ def _check_volume(cost: torch.Tensor, params: SGBMParams) -> None:
     check_integer_totals(params)
 
 
-def _sweep(lib, cost, acc_in, acc_out, dy, dx, p1, p2, stream) -> None:
+def _vertical_steps(num_paths: int) -> tuple:
+    """Sweep steps ``dy`` of the vertical launches of a mode: none for 2
+    paths, top-down for 5, top-down then bottom-up for 4 and 8."""
+    return {2: (), 5: (1,)}.get(num_paths, (1, -1))
+
+
+def _horizontal(lib, cost, acc, p1: float, p2: float, stream) -> None:
+    """One horizontal launch (B2, or B8a's pair) into ``acc``."""
+    global horizontal_plan
     b, h, w, d = cost.shape
-    _build.check(lib.v3d_sgm_sweep(
-        cost.data_ptr(), None if acc_in is None else acc_in.data_ptr(),
-        acc_out.data_ptr(), b, h, w, d, dy, dx, float(p1), float(p2),
-        _CODE[cost.dtype], _CODE[acc_out.dtype], stream), "v3d_sgm_sweep")
+    plan = (ctypes.c_int * 4)()
+    _build.check(lib.v3d_sgm_horizontal(
+        cost.data_ptr(), acc.data_ptr(), b, h, w, d, float(p1), float(p2),
+        _CODE[cost.dtype], _CODE[acc.dtype], plan, stream),
+        "v3d_sgm_horizontal")
+    horizontal_plan = tuple(plan)
 
 
 def horizontal_sweeps(cost: torch.Tensor, params: SGBMParams) -> torch.Tensor:
     """B2: (B, H, W, D) int16 cost -> sum of both horizontal paths, int16 or
     f32 by :func:`acc_dtype_for_params`. On the card both directions run in
     one launch."""
-    global sweep_launches, horizontal_plan
+    global sweep_launches
     if not cost.is_cuda:
         return horizontal_sweeps_plain(cost, params)
     _check_volume(cost, params)
     p1, p2 = integral_penalties(params.p1, params.p2)
-    lib = _build.lib()
-    stream = _build.stream_of(cost)
     acc = torch.empty(cost.shape, dtype=acc_dtype_for_params(cost.dtype,
                                                               params),
                       device=cost.device)
-    b, h, w, d = cost.shape
-    plan = (ctypes.c_int * 4)()
-    _build.check(lib.v3d_sgm_horizontal(
-        cost.data_ptr(), acc.data_ptr(), b, h, w, d, p1, p2,
-        _CODE[acc.dtype], plan, stream), "v3d_sgm_horizontal")
-    horizontal_plan = tuple(plan)
+    _horizontal(_build.lib(), cost, acc, p1, p2, _build.stream_of(cost))
     sweep_launches += 1
     return acc
 
@@ -140,10 +149,11 @@ def vertical_sweeps_wta(cost: torch.Tensor, acc: torch.Tensor,
     margin = torch.empty_like(disp) if return_margin else None
     rkey = (torch.empty(b * lib.v3d_sgm_vertical_keys(b, h, w, d),
                         dtype=torch.int32, device=dev) if lr >= 0 else None)
-    xch = (torch.empty(lib.v3d_sgm_vertical_scratch(b, w), dtype=torch.int32,
-                       device=dev) if n_dirs == 3 else None)
+    xch = (torch.empty(lib.v3d_sgm_vertical_scratch(b, w, _CODE[cost.dtype]),
+                       dtype=torch.int32, device=dev)
+           if n_dirs == 3 else None)
     plan = (ctypes.c_int * 6)()
-    steps = (1,) if params.num_paths in (2, 5) else (1, -1)
+    steps = _vertical_steps(params.num_paths) or (1,)  # 2 paths: WTA alone
     for dy in steps:
         close = dy == steps[-1]
         _build.check(lib.v3d_sgm_vertical(
@@ -151,9 +161,9 @@ def vertical_sweeps_wta(cost: torch.Tensor, acc: torch.Tensor,
             None if margin is None else margin.data_ptr(),
             None if rkey is None else rkey.data_ptr(),
             None if xch is None else xch.data_ptr(), b, h, w, d, n_dirs, dy,
-            int(close), p1, p2, int(params.min_disparity),
-            int(params.uniqueness_ratio), lr, _CODE[acc_dtype], plan,
-            stream), "v3d_sgm_vertical")
+            int(close), float(p1), float(p2), int(params.min_disparity),
+            int(params.uniqueness_ratio), lr, _CODE[cost.dtype],
+            _CODE[acc_dtype], plan, stream), "v3d_sgm_vertical")
     if n_dirs == 3:
         vertical_plan = tuple(plan)
     if lr >= 0:
@@ -171,8 +181,14 @@ def sgm_aggregate_pallas(cost: torch.Tensor, num_paths: int = 8,
     of a (B, H, W, D) f32 or bf16 cost, as f32 (B, H, W, D); the port's
     ``sgm_aggregate_pallas`` (the JAX package's public kernel API, same
     arguments less ``interpret``). The twin is
-    :func:`video3d_tpu_torch.ops.stereo.sgm_aggregate`."""
-    global aggregate_launches
+    :func:`video3d_tpu_torch.ops.stereo.sgm_aggregate`.
+
+    On the card B2's kernel runs the horizontal pair in one launch and B3's
+    one launch per vertical sweep step, each storing the f32 total: 1, 2
+    or 3 launches at 2, 5 or 4 and 8 paths (a launch of the 3-direction
+    sweeps runs in chunks of frames where the batch does not fit the card
+    at once)."""
+    global aggregate_launches, vertical_plan, aggregate_plan
     params = SGBMParams(num_paths=num_paths, p1=p1, p2=p2)
     if not cost.is_cuda:
         return sgm_aggregate(cost, params)
@@ -182,14 +198,30 @@ def sgm_aggregate_pallas(cost: torch.Tensor, num_paths: int = 8,
     _build.require(cost, cost.dtype, 4, "sgm_aggregate_pallas cost")
     if cost.shape[-1] > 128:
         raise ValueError("sgm_aggregate_pallas: at most 128 disparities")
-    directions = vertical_directions(num_paths)
+    n_dirs = len(vertical_shifts(num_paths))
     lib = _build.lib()
     stream = _build.stream_of(cost)
-    acc = torch.empty(cost.shape, dtype=torch.float32, device=cost.device)
-    _sweep(lib, cost, None, acc, 0, 1, p1, p2, stream)
-    _sweep(lib, cost, acc, acc, 0, -1, p1, p2, stream)
-    for dy, dx in directions:
-        _sweep(lib, cost, acc, acc, dy, dx, p1, p2, stream)
+    b, h, w, d = cost.shape
+    dev = cost.device
+    code = _CODE[cost.dtype]
+    acc = torch.empty(cost.shape, dtype=torch.float32, device=dev)
+    _horizontal(lib, cost, acc, p1, p2, stream)
+    xch = (torch.empty(lib.v3d_sgm_vertical_scratch(b, w, code),
+                       dtype=torch.int32, device=dev)
+           if n_dirs == 3 else None)
+    plan = (ctypes.c_int * 6)()
+    steps = _vertical_steps(num_paths)
+    for dy in steps:
+        _build.check(lib.v3d_sgm_vertical(
+            cost.data_ptr(), acc.data_ptr(), None, None, None,
+            None if xch is None else xch.data_ptr(), b, h, w, d, n_dirs, dy,
+            0, float(p1), float(p2), 0, 0, -1, code, _CODE[torch.float32],
+            plan, stream), "v3d_sgm_vertical")
+    chunks = 1
+    if n_dirs == 3:
+        vertical_plan = tuple(plan)
+        chunks = plan[4]
+    aggregate_plan = (1 + len(steps) * chunks, len(steps))
     aggregate_launches += 1
     return acc
 

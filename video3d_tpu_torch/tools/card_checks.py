@@ -1,4 +1,5 @@
-"""Small-shape checks of kernels B1-B6 and B8c against their plain twins.
+"""Small-shape checks of kernels B1-B6, B8a and B8c against their plain
+twins.
 
 The shapes stress what the 1080p run at D = 64 does not: widths that are
 no multiple of a block's strip of columns, heights shorter than B1's ring
@@ -22,7 +23,13 @@ to four, and ones no run divides), image rows HL from 1 to 1152 (no
 multiple of a tile, and ones no 16-byte copy divides), widths from 1 to
 257 (below and around twice its ring of positions), batches of 1 and 3,
 and all three type pairs, the f32 cost non-integer; each case bit-equal
-to the twin and to a second run. ``chip_smoke.py``
+to the twin and to a second run. B8a (``sgm_aggregate_pallas``) runs 2, 4,
+5 and 8 paths on f32 and bf16 non-integer costs, whole and non-integer
+penalties (one pair not exact in f32), D from 1 to 128 (57 and 40: no
+multiple of a lane's run), widths 1 to 257, heights 1 to 137, and batches
+that make the 3-direction launch take 32-warp blocks or run in two
+chunks; each case bit-equal to the twin and to a second run.
+``chip_smoke.py``
 and ``tests/test_torch_card.py`` both run them on the card; the functions
 raise ``AssertionError`` on a mismatch.
 """
@@ -37,7 +44,7 @@ from video3d_tpu_torch.kernels import (costvol, flowmatch, sgm, speckle, warp,
 from video3d_tpu_torch.ops import flow
 from video3d_tpu_torch.ops.image import resize2d
 from video3d_tpu_torch.ops.speckle import speckle_filter_device
-from video3d_tpu_torch.ops.stereo import SGBMParams
+from video3d_tpu_torch.ops.stereo import SGBMParams, sgm_aggregate
 
 # (batch, height, width, num_disparities, min_disparity, block_size)
 B1_CASES = [
@@ -140,6 +147,32 @@ B8C_CASES = [
     (1, 128, 257, 40, "i16/i16", "fwd+acc"),
 ]
 _B8C_TYPES = {"i16": torch.int16, "f32": torch.float32}
+
+# (batch, height, width, num_disparities, num_paths, cost type, p1, p2):
+# the card test's first shape at every mode and type, then D 1 to 128,
+# widths 1 to 257, heights 1 to 137; on an H100 (132 multiprocessors) the
+# 26 frames of 257 x 64 take 32-warp blocks in one launch and the 40 frames
+# 16-warp blocks in two chunks
+B8A_CASES = [(2, 30, 70, 40, paths, t, 6.0, 24.0)
+             for t in ("f32", "bf16") for paths in (2, 4, 5, 8)] + [
+    (1, 1, 1, 1, 8, "f32", 6.5, 24.25),
+    (3, 5, 7, 1, 5, "bf16", 6.5, 24.25),
+    (1, 137, 257, 16, 8, "f32", 6.5, 24.25),
+    (2, 9, 130, 57, 8, "bf16", 6.5, 24.25),
+    (1, 40, 200, 57, 5, "f32", 7.3, 30.1),
+    (1, 17, 257, 64, 4, "f32", 6.5, 24.25),
+    (1, 2, 16, 64, 2, "f32", 6.5, 24.25),
+    (1, 64, 96, 96, 8, "f32", 6.5, 24.25),
+    (2, 33, 65, 96, 5, "bf16", 6.5, 24.25),
+    (1, 20, 129, 128, 8, "f32", 7.3, 30.1),
+    (3, 7, 33, 128, 4, "bf16", 6.5, 24.25),
+    (2, 1, 300, 40, 8, "f32", 6.5, 24.25),
+    (1, 137, 1, 16, 8, "bf16", 6.5, 24.25),
+    (26, 9, 257, 64, 8, "f32", 6.5, 24.25),
+    (40, 9, 257, 64, 8, "f32", 6.5, 24.25),
+    (40, 9, 257, 64, 5, "bf16", 6.5, 24.25),
+]
+_B8A_TYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
 def gray_pair(b: int, h: int, w: int, shift: int, seed: int, device):
@@ -248,6 +281,25 @@ def check_b8c(device, b, d, w, hl, types, entry, seed=13) -> None:
     torch.cuda.synchronize(device)
     what = f"B8c {entry} at {(b, d, w, hl)} {types}"
     assert got.dtype == acc_dt and got.shape == cost.shape, what
+    assert torch.equal(got, again), f"{what}: runs differ"
+    err = (got.double() - want.double()).abs().max().item()
+    assert torch.equal(got, want), f"{what}: max |err| {err}"
+
+
+def check_b8a(device, b, h, w, d, paths, cost_type, p1, p2, seed=14) -> None:
+    """B8a on the card, one call, equals its twin bit for bit and a second
+    run of itself on a non-integer cost in [0, 100)."""
+    r = np.random.default_rng(seed)
+    cost = torch.from_numpy(r.uniform(0, 100, (b, h, w, d)).astype(
+        np.float32)).to(device, _B8A_TYPES[cost_type])
+    n = sgm.aggregate_launches
+    got = sgm.sgm_aggregate_pallas(cost, paths, p1, p2)
+    again = sgm.sgm_aggregate_pallas(cost, paths, p1, p2)
+    assert sgm.aggregate_launches == n + 2
+    want = sgm_aggregate(cost, SGBMParams(num_paths=paths, p1=p1, p2=p2))
+    torch.cuda.synchronize(device)
+    what = f"B8a at {(b, h, w, d)}, {paths} paths, {cost_type}, {p1}/{p2}"
+    assert got.dtype == torch.float32 and got.shape == cost.shape, what
     assert torch.equal(got, again), f"{what}: runs differ"
     err = (got.double() - want.double()).abs().max().item()
     assert torch.equal(got, want), f"{what}: max |err| {err}"

@@ -1,4 +1,4 @@
-"""Times of kernels B2, B8c and B4 at 1080p over batch sizes and band counts.
+"""Times of kernels B2, B8c, B4 and B8a at 1080p over batch sizes.
 
 What ``chip_smoke.py`` does not time: B2 (both horizontal sweeps, int16
 and f32 accumulator), B8c (both W-major horizontal sweeps on the
@@ -7,15 +7,26 @@ forward and a reverse one-direction launch) and B4 (speckle vote
 at the default 3 bands, and at 9 and 65 bands, where it counts with
 per-column histograms) at batches of 1, 2, 4 and 8 frames of 1920x1080,
 D=64, in ms per frame (CUDA events over back-to-back calls), B2's and
-B8c's launch plans beside them. Prints the card's name and power limit
-first.
+B8c's launch plans beside them; and B8a (``sgm_aggregate_pallas`` at 8
+and 5 paths on the f32 and the bf16 cost volume, B1's volume over 3, with
+the default penalties over 3) with its launches a call where the tree
+records them. ``digest`` prints a SHA-256 of the outputs of B1-B4 (the
+int16 cost, B2's sums at 5 and 8 paths, B3's disparity and margin, B4's
+map) instead of a time, to show that two trees give the same bits.
+Prints the card's name and power limit first. The script uses only entry
+points that trees before the B8a redesign have, so ``PYTHONPATH=<other
+tree> python <this file> b8a digest 2`` runs another checkout's kernels
+in the same call.
 
-Usage: ``python -m video3d_tpu_torch.tools.time_kernels [batch ...]`` on a
-CUDA card.
+Usage: ``python -m video3d_tpu_torch.tools.time_kernels [kernel ...]
+[batch ...]`` on a CUDA card; kernels are ``b2``, ``b8c``, ``b4``,
+``b8a`` and ``digest`` (default: all but ``digest``), batches default to
+1, 2, 4 and 8.
 """
 
 from __future__ import annotations
 
+import hashlib
 import subprocess
 import sys
 
@@ -42,8 +53,18 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
+KERNELS = ("b2", "b8c", "b4", "b8a", "digest")
+
+
 def main(argv=None) -> int:
-    batches = [int(a) for a in (sys.argv[1:] if argv is None else argv)]
+    args = sys.argv[1:] if argv is None else argv
+    batches = [int(a) for a in args if a.isdigit()]
+    kernels = [a for a in args if not a.isdigit()] or list(KERNELS[:-1])
+    unknown = set(kernels) - set(KERNELS)
+    if unknown:
+        print(f"time_kernels: unknown kernels {sorted(unknown)}",
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("time_kernels: no CUDA device", file=sys.stderr)
         return 2
@@ -51,48 +72,97 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True,
         text=True).stdout.strip().splitlines()[0])
-    p, p8 = SGBMParams(), SGBMParams(num_paths=8)
+    p = SGBMParams()
+    timers = {"b2": b2, "b8a": b8a, "b8c": b8c, "b4": b4, "digest": digest}
     for nb in batches or [1, 2, 4, 8]:
         gl, gr = gray_pair(torch.from_numpy(sbs_batch(nb)).to("cuda"))
         cost = costvol.cost_volume(gl, gr, p, 2.0 * p.prefilter_cap)
-        for name, pp in (("int16", p), ("f32", p8)):
-            ms = cuda_ms(lambda: sgm.horizontal_sweeps(cost, pp)) / nb
-            print(f"B2 {name} acc, batch {nb}: {ms:.4f} ms/frame; blocks "
-                  f"per SM, SMs, blocks, rounds = {sgm.horizontal_plan}")
-        cost_t = cost.permute(0, 3, 2, 1).contiguous()  # (B, D, W, H)
-        # absent from trees before the two-direction entry, so the tool
-        # times those too (their one-direction pair only)
-        both = getattr(wmajor, "horizontal_sweeps_wmajor_kernel", None)
-        for name, pp in (("int16", p), ("f32", p8)):
-            adt = acc_dtype_for_params(cost.dtype, pp)
-            acc_t = torch.empty(cost_t.shape, dtype=adt, device="cuda")
-
-            def pair():
-                wmajor.wmajor_sweep(cost_t, None, pp.p1, pp.p2, False, adt)
-                wmajor.wmajor_sweep(cost_t, acc_t, pp.p1, pp.p2, True)
-
-            ms = cuda_ms(pair, 3) / nb
-            print(f"B8c {name} acc, batch {nb}, forward + reverse "
-                  f"one-direction launches: {ms:.4f} ms/frame")
-            if both is not None:
-                ms = cuda_ms(lambda: both(cost_t, pp.p1, pp.p2, adt)) / nb
-                print(f"B8c {name} acc, batch {nb}, both directions in one "
-                      f"launch: {ms:.4f} ms/frame; blocks per SM, SMs, "
-                      f"blocks, rounds, rows a tile, shared bytes = "
-                      f"{wmajor.horizontal_plan}")
-            del acc_t
-        del cost_t
-        disp = sgm.vertical_sweeps_wta(cost, sgm.horizontal_sweeps(cost, p),
-                                       p)
-        for max_diff in (32.0, 8.0, 1.0):
-            ms = cuda_ms(lambda: speckle.speckle_filter(
-                disp, INVALID(p), max_diff, p.speckle_window_size,
-                (0.0, float(p.num_disparities))), 20) / nb
-            print(f"B4 max_diff {max_diff:g} "
-                  f"({int(p.num_disparities / max_diff) + 1} bands), batch "
-                  f"{nb}: {ms:.4f} ms/frame")
-        del cost, disp
+        for name in KERNELS:
+            if name in kernels:
+                timers[name](cost, p, nb)
+        del cost
     return 0
+
+
+def b2(cost, p, nb: int) -> None:
+    """B2 at the int16 (5 paths) and the f32 (8 paths) accumulator."""
+    for name, pp in (("int16", p), ("f32", p.replace(num_paths=8))):
+        ms = cuda_ms(lambda: sgm.horizontal_sweeps(cost, pp)) / nb
+        print(f"B2 {name} acc, batch {nb}: {ms:.4f} ms/frame; blocks "
+              f"per SM, SMs, blocks, rounds = {sgm.horizontal_plan}")
+
+
+def b8a(cost, p, nb: int) -> None:
+    """B8a at 8 and 5 paths on the f32 and bf16 volume ``cost / 3``."""
+    for paths in (8, 5):
+        for dt in (torch.float32, torch.bfloat16):
+            cf = (cost.to(torch.float32) / 3).to(dt)
+            args = (cf, paths, p.p1 / 3, p.p2 / 3)
+            ms = cuda_ms(lambda: sgm.sgm_aggregate_pallas(*args), 5) / nb
+            print(f"B8a {paths} paths, {str(dt)[6:]} cost, batch {nb}: "
+                  f"{ms:.4f} ms/frame; launches a call, vertical steps = "
+                  f"{getattr(sgm, 'aggregate_plan', None)}")
+            del cf
+
+
+def b8c(cost, p, nb: int) -> None:
+    """B8c's two-direction entry and its one-direction pair, both
+    accumulators."""
+    cost_t = cost.permute(0, 3, 2, 1).contiguous()  # (B, D, W, H)
+    # absent from trees before the two-direction entry, so the tool
+    # times those too (their one-direction pair only)
+    both = getattr(wmajor, "horizontal_sweeps_wmajor_kernel", None)
+    for name, pp in (("int16", p), ("f32", p.replace(num_paths=8))):
+        adt = acc_dtype_for_params(cost.dtype, pp)
+        acc_t = torch.empty(cost_t.shape, dtype=adt, device="cuda")
+
+        def pair():
+            wmajor.wmajor_sweep(cost_t, None, pp.p1, pp.p2, False, adt)
+            wmajor.wmajor_sweep(cost_t, acc_t, pp.p1, pp.p2, True)
+
+        ms = cuda_ms(pair, 3) / nb
+        print(f"B8c {name} acc, batch {nb}, forward + reverse "
+              f"one-direction launches: {ms:.4f} ms/frame")
+        if both is not None:
+            ms = cuda_ms(lambda: both(cost_t, pp.p1, pp.p2, adt)) / nb
+            print(f"B8c {name} acc, batch {nb}, both directions in one "
+                  f"launch: {ms:.4f} ms/frame; blocks per SM, SMs, "
+                  f"blocks, rounds, rows a tile, shared bytes = "
+                  f"{wmajor.horizontal_plan}")
+        del acc_t
+
+
+def digest(cost, p, nb: int) -> None:
+    """SHA-256 of the bytes of B1-B4's outputs on the batch: the cost,
+    B2's sums and B3's disparity and margin at 5 and 8 paths, B4's map."""
+    h = hashlib.sha256()
+
+    def add(t):
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+
+    add(cost)
+    for pp in (p, p.replace(num_paths=8)):
+        acc = sgm.horizontal_sweeps(cost, pp)
+        add(acc)
+        disp, margin = sgm.vertical_sweeps_wta(cost, acc, pp, True)
+        add(disp)
+        add(margin)
+    add(speckle.speckle_filter(disp, INVALID(p), float(p.speckle_range),
+                               p.speckle_window_size,
+                               (0.0, float(p.num_disparities))))
+    print(f"B1-B4 outputs, batch {nb}: sha256 {h.hexdigest()}")
+
+
+def b4(cost, p, nb: int) -> None:
+    """B4 at 3, 9 and 65 bands on the batch's disparity."""
+    disp = sgm.vertical_sweeps_wta(cost, sgm.horizontal_sweeps(cost, p), p)
+    for max_diff in (32.0, 8.0, 1.0):
+        ms = cuda_ms(lambda: speckle.speckle_filter(
+            disp, INVALID(p), max_diff, p.speckle_window_size,
+            (0.0, float(p.num_disparities))), 20) / nb
+        print(f"B4 max_diff {max_diff:g} "
+              f"({int(p.num_disparities / max_diff) + 1} bands), batch "
+              f"{nb}: {ms:.4f} ms/frame")
 
 
 if __name__ == "__main__":
