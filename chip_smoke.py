@@ -24,7 +24,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    reverse, and both directions in one launch at the int16 and the f32
    accumulator, at HL = 1080 and HP = 1152), and the
    B8b round trip (equal to the input and to ``permute().contiguous()``)
-   at the same shape; the six int16 probe ops (P); B5 flow warp at
+   at the same shape, with its device time and the bytes a second it
+   moves, and at the small shapes of ``card_checks`` in int16 and f32,
+   twice, aligned and not; the six int16 probe ops (P) in one launch and
+   each alone, at the probe's shape and at ragged ones; B5 flow warp at
    1080x1920 with r = 16 and at 270x480 with r = 6, B6 flow match at
    270x480; the fused forms the flow path runs: B6's level step (upsample,
    clamp, warp and match in one launch) at 270x480 from a 135x240 flow and
@@ -42,10 +45,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    is printed beside its twin's, its bound (the larger of the bytes it
    must move over 3.35 TB/s and its operations over the unit's peak) and,
    where one PyTorch call computes the same function, that call's time
-   (SDPA for B7, ``permute().contiguous()`` for B8b); for B7 and SDPA, and
-   B5's and B6's fused forms, also the device time per call from a
-   ``torch.profiler`` trace, since their back-to-back event times include
-   each call's host cost;
+   (SDPA for B7, ``permute().contiguous()`` for B8b); for B7 and SDPA,
+   B8b, P and B5's and B6's fused forms, also the device time per call
+   from a ``torch.profiler`` trace, since their back-to-back event times
+   include each call's host cost;
 4. drives each path through the entry points a user calls, with every
    launch count set to 0 just before and read just after, and fails if a
    kernel of the path never ran: the stereo-only depth stage
@@ -64,7 +67,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    horizontal routes (``horizontal_route`` xla and mxu) on one batch of 8
    at 5 and 8 paths, bit-equal to the legacy route; B8a through the public
    ``sgm_aggregate_pallas`` at 8 and 5 paths on f32 and bf16 cost; the
-   int16 probe's own run; the CREStereo
+   int16 probe's own run (two launches: one a set of inputs); the CREStereo
    hybrid, the shipped default (``StereoDepthExtractor`` with no guidance
    argument, the bundled weights; fails if it degrades to stereo-only;
    one forward of 2 keyframes and B1-B4 once per batch of 8, batch 0 step
@@ -234,6 +237,16 @@ def device_ms(fn, reps: int):
         torch.cuda.synchronize()
     total_us = sum(e.device_time_total for e in prof.key_averages())
     return total_us / 1e3 / reps if total_us > 0 else None
+
+
+def launch_ms(fn, reps: int, word: str):
+    """Device milliseconds per call of ``fn`` in the kernels whose name
+    holds ``word``, each launched once a call: the sum over those kernels
+    of their mean time a record in a ``torch.profiler`` trace (a trace
+    has been seen to drop a record), or None when it holds none."""
+    _, per = profile_kernels(fn, reps)
+    got = [ms / n for name, (n, ms) in per.items() if word in name and n]
+    return sum(got) if got else None
 
 
 def timed(fn):
@@ -585,6 +598,11 @@ def main() -> int:
         card_checks.check_b8c(dev, *case)
     for case in card_checks.B8A_CASES:
         card_checks.check_b8a(dev, *case)
+    for case in card_checks.B8B_CASES:
+        for types in ("i16", "f32"):
+            card_checks.check_b8b(dev, *case, types)
+    for case in card_checks.P_CASES:
+        card_checks.check_p(dev, case)
     print(f"B1 equals its twin at {len(card_checks.B1_CASES)} small shapes "
           f"(D 16-128, widths 33-1000, heights 2-137, min_disparity 0 and "
           f"3, blocks 3-9); B2 at {len(card_checks.B2_CASES)} (widths "
@@ -597,7 +615,11 @@ def main() -> int:
           f"1-1152, widths 1-257, all three type pairs, twice each); B8a at "
           f"{len(card_checks.B8A_CASES)} (2, 4, 5 and 8 paths, f32 and bf16 "
           f"non-integer costs, D 1-128, widths 1-257, heights 1-137, one and "
-          f"two chunks of frames, twice each)")
+          f"two chunks of frames, twice each); B8b at "
+          f"{len(card_checks.B8B_CASES)} in int16 and f32 (heights 1-130, "
+          f"widths 1-257, D 1-128, each to and from twice, aligned and "
+          f"not); P at {len(card_checks.P_CASES)} ragged shapes (all six "
+          f"ops in one launch and each alone, aligned and not)")
 
     # B8a, the public sgm_aggregate_pallas, at 8 and 5 paths on the f32 and
     # bf16 cost (the B1 volume over 3: non-integer values, the default
@@ -761,47 +783,69 @@ def main() -> int:
         cost.permute(0, 3, 2, 1).contiguous()[..., :H].permute(
             0, 3, 2, 1).contiguous()
 
+    def b8b_round_trip():
+        wmajor.transpose_from_wmajor(wmajor.transpose_to_wmajor(cost), H)
+
     add_row("B8b", at=at_1080 + ", to and from W-major (HP = 1152)",
             name="B8b transpose_to/from_wmajor",
             source="video3d_tpu_torch/csrc/wmajor.cu",
             replaces="video3d_tpu/kernels/sgm.py:254,279", max_abs_err=0,
-            ms=cuda_ms(lambda: wmajor.transpose_from_wmajor(
-                wmajor.transpose_to_wmajor(cost), H), 5) / B,
+            ms=cuda_ms(b8b_round_trip, 10) / B,
             plain_ms=cuda_ms(lambda: wmajor.transpose_from_wmajor_plain(
                 wmajor.transpose_to_wmajor_plain(cost), H), 3) / B,
             library_ms=cuda_ms(lib_round_trip, 5) / B,
             # each way the int16 volume read once and written once; the
             # padding lanes are garbage by contract and not counted
             work=(4 * vol * 2 / B,))
+    r = rows["B8b"]
+    dev_b8b = launch_ms(b8b_round_trip, 10, "transpose_kernel")
+    tp = wmajor.transpose_plan
+    print(f"B8b: {r['ms']:.4f} ms/frame to + from (CUDA events), device "
+          + (f"{dev_b8b / B:.4f}" if dev_b8b else "not measured")
+          + f" (torch.profiler), {4 * vol * 2 / B / r['ms'] / 1e9:.3f} TB/s "
+          f"of the bound's bytes; bound {r['bound_ms']:.4f}; one launch a "
+          f"way, {tp[2]} blocks ({tp[0]} on each of {tp[1]} "
+          f"multiprocessors) walking {tp[3]} tiles on {card}")
     del t, cost
     torch.cuda.empty_cache()
 
-    # P: the six int16 probe ops at the probe's shape, each against its
-    # torch expression on the probe's inputs and on full-range ones (add
-    # wraps, the cast saturates); timed on the probe's
+    # P: the six int16 probe ops at the probe's shape in one launch, each
+    # against its torch expression on the probe's inputs and on full-range
+    # ones (add wraps, the cast saturates), and each op alone (its bit of
+    # the mask); timed on the probe's
     xs_full = probe_i16.probe_inputs(dev, full_range=True)
     xs = probe_i16.probe_inputs(dev)
-    p_ms = p_plain = 0.0
-    for name, (_, n_in, expr) in probe_i16.OPS.items():
-        for ins in (xs, xs_full):
-            got = probe_i16.probe_op(name, *ins[:n_in])
+    for ins in (xs, xs_full):
+        n = probe_i16.launches
+        got = probe_i16.probe_all(*ins)
+        check(probe_i16.launches == n + 1, "P: probe_all is not one launch")
+        for k, (name, (_, n_in, expr)) in enumerate(probe_i16.OPS.items()):
             want = expr(*ins[:n_in])
             torch.cuda.synchronize()
-            check(torch.equal(got, want), f"P {name} differs from torch")
-        k_ms = cuda_ms(lambda: probe_i16.probe_op(name, *xs[:n_in]), 50)
-        e_ms = cuda_ms(lambda: expr(*xs[:n_in]), 50)
-        print(f"P {name}: OK, {k_ms * 1e3:.2f} us/call vs torch "
-              f"{e_ms * 1e3:.2f} us/call on {card}")
-        p_ms, p_plain = p_ms + k_ms, p_plain + e_ms
+            check(torch.equal(got[k], want), f"P {name} differs from torch")
+            check(torch.equal(probe_i16.probe_op(name, *ins[:n_in]), want),
+                  f"P {name} alone differs from torch")
     n_el = xs[0].numel()
-    add_row("P", at="ms for all six ops at (8, 64, 256) int16",
-            name="P probe_i16 (six int16 toy ops)",
+    add_row("P", at="ms for all six ops at (8, 64, 256) int16, one call",
+            name="P probe_i16 (six int16 toy ops, one launch)",
             source="video3d_tpu_torch/csrc/probe_i16.cu",
-            replaces="tools/probe_i16.py:34", max_abs_err=0, ms=p_ms,
-            plain_ms=p_plain,
-            # 2+3+2+1+1+1 inputs and six outputs of n_el int16 each
-            work=((10 + 6) * n_el * 2, 12 * n_el))
-    del xs, xs_full
+            replaces="tools/probe_i16.py:34", max_abs_err=0,
+            ms=cuda_ms(lambda: probe_i16.probe_all(*xs), 100),
+            plain_ms=cuda_ms(lambda: probe_i16.probe_all_plain(xs), 50),
+            # three inputs read once, six outputs written once; per
+            # element 15 operations: add 1, add+sub 2, the column compare
+            # and select 2, the cast 5, the roll's casts 2, the halving 3
+            work=((3 + 6) * n_el * 2, 15 * n_el))
+    r = rows["P"]
+    dev_p = launch_ms(lambda: probe_i16.probe_all(*xs), 100, "probe_kernel")
+    six_ms = sum(cuda_ms(lambda: probe_i16.probe_op(name, *xs[:n_in]), 50)
+                 for name, (_, n_in, _) in probe_i16.OPS.items())
+    print(f"P: {r['ms'] * 1e3:.2f} us a call of all six ops (CUDA events), "
+          f"device " + (f"{dev_p * 1e3:.2f} us" if dev_p else "not measured")
+          + f" (torch.profiler); six calls of one op {six_ms * 1e3:.2f} us; "
+          f"torch expressions {r['plain_ms'] * 1e3:.2f} us; bound "
+          f"{r['bound_ms'] * 1e3:.2f} us on {card}")
+    del xs, xs_full, got
 
     # B5 at the full-resolution depth warp (r = max_warp = 16) and at the
     # finest flow level at flow_scale 4 (270x480, r = 4 + search = 6).
@@ -1359,6 +1403,8 @@ def main() -> int:
         counts(reset=True)
         check(probe_i16.main([]) == 0, "the int16 probe failed")
         rows["P"]["launches"] = ran(counts(), ("P",), "the probe")[0]
+        check(rows["P"]["launches"] == 2,
+              f"the probe made {rows['P']['launches']} launches, not 2")
 
         # -- 4h. the CREStereo hybrid, the shipped default ------------------
         phase("4h. the CREStereo hybrid (the default)")

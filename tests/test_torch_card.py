@@ -6,10 +6,12 @@ on a machine that has a CUDA card and no JAX:
     python -m pytest --noconftest tests/test_torch_card.py -m cuda
 
 Every test is marked ``cuda`` and skips where ``torch.cuda.is_available()``
-is false. B1-B4, B8a and B8c run the small-shape lists of
+is false. B1-B4, B8a-c and P run the small-shape lists of
 ``video3d_tpu_torch/tools/card_checks.py`` (ragged widths, short heights,
-D from 16 to 128 (B8a from 1), ``min_disparity`` 3, every SGM mode, both
-accumulator types, f32 and bf16 float costs, 2 bands to one a disparity),
+D from 16 to 128 (B8a and B8b from 1), ``min_disparity`` 3, every SGM
+mode, both accumulator types, f32 and bf16 float costs, 2 bands to one a
+disparity; B8b in int16 and f32 from aligned storage and not; P at
+ragged shapes, all six ops in one launch and each alone),
 B6's level step and B5's EMA step their lists there (guides 5x7 to
 540x960); the other kernels
 run at the shapes of the ``cuda`` tests beside their CPU tests. Gates are
@@ -172,5 +174,18 @@ def test_b8c_cases_match_twin(dev, case):
     card_checks.check_b8c(dev, *case)
 
 
+@pytest.mark.parametrize("types", ["i16", "f32"])
+@pytest.mark.parametrize("case", card_checks.B8B_CASES, ids=str)
+def test_b8b_cases_match_twin(dev, case, types):
+    card_checks.check_b8b(dev, *case, types)
+
+
 def test_probe_ops_match_torch(dev):
+    n = probe_i16.launches
     assert all(v == 0 for v in probe_i16.run(dev).values())
+    assert probe_i16.launches == n + 2  # one launch a set of inputs
+
+
+@pytest.mark.parametrize("shape", card_checks.P_CASES, ids=str)
+def test_p_cases_match_torch(dev, shape):
+    card_checks.check_p(dev, shape)

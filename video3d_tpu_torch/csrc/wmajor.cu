@@ -13,12 +13,13 @@
 // as bf16 hi/lo identity matmuls on the MXU, a device of that chip; here
 // they are plain tiled transposes, equal in value.
 //
-// What bounds them on the H100: B8b moves each element once each way (531
-// MB in and ~566 MB out for two 1080p frames at D=64 in int16: ~0.33 ms at
-// 3.35 TB/s). B8c, with both directions in one launch, moves the cost twice
-// and the accumulator three times, as B2 does on the D-major layout and for
-// the same reason (the second chain to reach a pixel needs the first one's
-// sum, and a row tile's sums do not fit on chip): 1,325 MB a 1080p frame at
+// What bounds them on the H100: B8b moves each element once each way (a
+// round trip of one 1080p frame at D=64 in int16 reads and writes 1,062
+// MB: 0.317 ms at 3.35 TB/s). B8c, with both directions in one launch,
+// moves the cost twice and the accumulator three times, as B2 does on the
+// D-major layout and for the same reason (the second chain to reach a
+// pixel needs the first one's sum, and a row tile's sums do not fit on
+// chip): 1,325 MB a 1080p frame at
 // D=64 with an int16 accumulator (0.40 ms at 3.35 TB/s), 2,120 MB with f32
 // (0.63 ms), against the 530 MB (0.16 ms) of reading the cost and writing
 // the sum once. Measured on an H100 80GB HBM3 at 700 W (1080p, D=64), it
@@ -86,15 +87,40 @@
 // the twin), so it rounds as the TPU kernel and the plain twin do: the two
 // chains' sums meet in one addition, which commutes.
 //
-// B8b design: a 32x32 tile through shared memory (one padding column
-// against bank conflicts) per (b, x) and tile of (h, d); reads run along d
-// in the input and writes along h in the output, both coalesced. Padding
-// lanes h >= H of the W-major volume are written as zero; the inverse reads
-// only h < H.
+// B8b design (transpose_kernel). What bounds it is bytes: a round trip
+// reads and writes the volume twice, 4 x vol x 2 B a frame in int16 (1,062
+// MB at 1080p, D=64: 0.317 ms at 3.35 TB/s), so the design is about
+// moving those bytes in whole lines. Each frame is a matrix transpose with
+// a regroup: `to` views frame b as an H x (W * D) matrix, whose column
+// c = (x, d) becomes the output row (d, x) of HP values; `from` is the
+// inverse and reads only the chunks that hold rows h < H. A tile is XT_H =
+// 64 rows h by XT_ROW_BYTES = 256 bytes of the (x, d) span (128 int16
+// columns: two x at D = 64, one at D = 128; 64 f32 ones), wherever the x
+// boundaries fall. Its input side is one 256-byte row segment per h (`to`)
+// or 64 h per column, 128 bytes in int16 (`from`); its output side the
+// other way round, so both sides move whole 128-byte lines, 16 bytes a
+// thread. The launch is persistent: a few blocks per multiprocessor walk
+// the tiles in turn, each with a ring of XT_STAGES tiles in shared memory
+// filled by cp.async XT_STAGES - 1 tiles ahead, so the next tiles load
+// while the current one is written out. A thread moves an EPC x EPC block
+// (EPC = 16 / element size: 8x8 int16, 4x4 f32): EPC 16-byte loads from
+// the shared tile, a register transpose (int16 by __byte_perm on word
+// pairs; f32 by register renaming), EPC 16-byte stores straight to device
+// memory; the threads of a quarter warp take the eight blocks along one
+// output row, so each store instruction writes 128 contiguous bytes. The
+// shared tile keeps its input rows whole and swaps the 16-byte chunks of
+// row r by k ^ ((r / EPC) & 7): the eight threads of a quarter warp, which
+// read chunk k of rows EPC apart, meet eight bank groups, and the copy in,
+// eight chunks of one row, too, for 2- and 4-byte elements alike. Tiles
+// that lie wholly in H <= h < HP write zeros and read nothing; a partial
+// tile masks the rows >= H to zero. Where a row is no multiple of 16
+// bytes (W * D or HP * element size) or a pointer is not 16-byte
+// aligned, that side moves element by element in the same kernel.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 #include "sgm_common.cuh"
@@ -409,68 +435,224 @@ int wmajor_types(const void* cost, const void* acc_in, void* acc, int B,
   return (int)cudaErrorInvalidValue;
 }
 
-constexpr int TT = 32;  // transpose tile
+// B8b's tile: XT_H rows h by XT_ROW_BYTES of the (x, d) span; XT_STAGES
+// tiles in flight a block
+constexpr int XT_H = 64;
+constexpr int XT_ROW_BYTES = 256;
+constexpr int XT_STAGES = 3;
+constexpr int XT_THREADS = 128;
+constexpr int XT_TILE_BYTES = XT_H * XT_ROW_BYTES;
 
-// (B, H, W, D) -> (B, D, W, HP), zero lanes h >= H.
-// grid (B * W, HP / 32, ceil(D / 32)), block (32, 8)
+__device__ __forceinline__ uint32_t word(const uint4& v, int q) {
+  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+}
+
+// element j of a chunk of 2- or 4-byte elements, as the element's bits
 template <typename T>
-__global__ void to_wmajor_kernel(const T* __restrict__ in, T* __restrict__ out,
-                                 int H, int W, int D, int HP) {
-  __shared__ T tile[TT][TT + 1];
-  const long long bw = blockIdx.x;
-  const long long b = bw / W;
-  const int x = (int)(bw % W);
-  const int h0 = blockIdx.y * TT, d0 = blockIdx.z * TT;
-  for (int i = threadIdx.y; i < TT; i += blockDim.y) {
-    const int h = h0 + i, d = d0 + threadIdx.x;
-    T v = 0;
-    if (h < H && d < D) v = in[((b * H + h) * W + x) * D + d];
-    tile[i][threadIdx.x] = v;
-  }
-  __syncthreads();
-  for (int i = threadIdx.y; i < TT; i += blockDim.y) {
-    const int d = d0 + i, h = h0 + threadIdx.x;
-    if (d < D && h < HP) out[((b * D + d) * W + x) * HP + h] = tile[threadIdx.x][i];
+__device__ __forceinline__ T elem(const uint4& v, int j) {
+  if (sizeof(T) == 4) return (T)word(v, j);
+  return (T)(word(v, j >> 1) >> (16 * (j & 1)));
+}
+
+// o[i] element j = a[j] element i, for 8x8 2-byte elements: the two halves
+// of output word p come from rows 2p and 2p + 1
+__device__ __forceinline__ void xpose(const uint4 (&a)[8], uint4 (&o)[8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const unsigned sel = (i & 1) ? 0x7632 : 0x5410;
+    const int q = i >> 1;
+    o[i] = make_uint4(__byte_perm(word(a[0], q), word(a[1], q), sel),
+                      __byte_perm(word(a[2], q), word(a[3], q), sel),
+                      __byte_perm(word(a[4], q), word(a[5], q), sel),
+                      __byte_perm(word(a[6], q), word(a[7], q), sel));
   }
 }
 
-// (B, D, W, HP) -> (B, H, W, D), rows h < H only.
-// grid (B * W, ceil(H / 32), ceil(D / 32)), block (32, 8)
-template <typename T>
-__global__ void from_wmajor_kernel(const T* __restrict__ in,
-                                   T* __restrict__ out, int H, int W, int D,
-                                   int HP) {
-  __shared__ T tile[TT][TT + 1];
-  const long long bw = blockIdx.x;
-  const long long b = bw / W;
-  const int x = (int)(bw % W);
-  const int h0 = blockIdx.y * TT, d0 = blockIdx.z * TT;
-  for (int i = threadIdx.y; i < TT; i += blockDim.y) {
-    const int d = d0 + i, h = h0 + threadIdx.x;
-    T v = 0;
-    if (d < D && h < H) v = in[((b * D + d) * W + x) * HP + h];
-    tile[i][threadIdx.x] = v;
-  }
-  __syncthreads();
-  for (int i = threadIdx.y; i < TT; i += blockDim.y) {
-    const int h = h0 + i, d = d0 + threadIdx.x;
-    if (h < H && d < D) out[((b * H + h) * W + x) * D + d] = tile[threadIdx.x][i];
-  }
+// the same for 4x4 4-byte elements
+__device__ __forceinline__ void xpose(const uint4 (&a)[4], uint4 (&o)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    o[i] = make_uint4(word(a[0], i), word(a[1], i), word(a[2], i),
+                      word(a[3], i));
 }
 
-template <typename T>
+// 16-byte chunk of the shared tile that holds chunk k of input row r (NC
+// chunks a row)
+template <int EPC, int NC>
+__device__ __forceinline__ int xchunk(int r, int k) {
+  return r * NC + (k ^ ((r / EPC) & 7));
+}
+
+// B8b: TO maps (B, H, W, D) -> (B, D, W, HP), rows h >= H zero; else
+// (B, D, W, HP) -> (B, H, W, D). T: the element's bits (2 or 4 bytes).
+// vec_in / vec_out: 16-byte accesses on that side. See the note at the
+// top of the file.
+template <typename T, bool TO>
+__global__ void __launch_bounds__(XT_THREADS)
+transpose_kernel(const T* __restrict__ in, T* __restrict__ out, int B, int H,
+                 int W, int D, int HP, int vec_in, int vec_out) {
+  constexpr int ES = (int)sizeof(T), EPC = 16 / ES;
+  constexpr int CW = XT_ROW_BYTES / ES;       // (x, d) columns a tile
+  constexpr int NR = TO ? XT_H : CW;          // input rows a tile
+  constexpr int NC = (TO ? CW : XT_H) / EPC;  // chunks an input row
+  constexpr int NRB = NR / EPC;               // chunks an output row
+  static_assert(NRB % 8 == 0 && NC % 8 == 0, "a quarter warp's 8 chunks");
+  extern __shared__ int4 xsm[];
+  const long long WD = (long long)W * D;
+  const int n_ht = ((TO ? HP : H) + XT_H - 1) / XT_H;
+  const long long n_ct = (WD + CW - 1) / CW;
+  const long long tiles = B * n_ht * n_ct;
+
+  struct Tile {
+    long long b, c0;
+    int h0;
+    int nr;   // input rows to read: rows h < H (TO), columns c < WD
+    int ne;   // elements of an input row to read = output rows to write
+    int len;  // elements of an output row to write
+  };
+  auto tile_at = [&](long long g) {
+    Tile t;
+    t.c0 = (g % n_ct) * CW;
+    t.h0 = (int)((g / n_ct) % n_ht) * XT_H;
+    t.b = g / (n_ct * n_ht);
+    const int cols = (int)min((long long)CW, WD - t.c0);
+    if (TO) {
+      t.nr = max(0, min(XT_H, H - t.h0));
+      t.ne = cols;
+      t.len = min(XT_H, HP - t.h0);
+    } else {
+      t.nr = cols;
+      t.ne = min(XT_H, H - t.h0);
+      t.len = cols;
+    }
+    return t;
+  };
+  // input row r of tile t
+  auto in_row = [&](const Tile& t, int r) -> const T* {
+    if (TO) return in + ((t.b * H + t.h0 + r) * WD + t.c0);
+    const long long c = t.c0 + r;
+    return in + (((t.b * D + c % D) * W + c / D) * (long long)HP + t.h0);
+  };
+  // tile t into ring slot `slot`, asynchronously where vec_in
+  auto fetch = [&](long long g, int slot) {
+    if (g >= tiles) return;
+    const Tile t = tile_at(g);
+    char* s = (char*)xsm + slot * XT_TILE_BYTES;
+    if (vec_in) {
+      for (int i = threadIdx.x; i < NR * NC; i += XT_THREADS) {
+        const int r = i / NC, k = i % NC;
+        if (r < t.nr && k * EPC < t.ne)
+          cp_async16(s + xchunk<EPC, NC>(r, k) * 16, in_row(t, r) + k * EPC);
+      }
+    } else {
+      for (int i = threadIdx.x; i < NR * NC * EPC; i += XT_THREADS) {
+        const int r = i / (NC * EPC), e = i % (NC * EPC);
+        if (r < t.nr && e < t.ne)
+          *(T*)(s + xchunk<EPC, NC>(r, e / EPC) * 16 + (e % EPC) * ES) =
+              in_row(t, r)[e];
+      }
+    }
+  };
+
+  long long g = blockIdx.x;
+#pragma unroll 1
+  for (int s = 0; s < XT_STAGES - 1; ++s) {
+    fetch(g + (long long)s * gridDim.x, s);
+    cp_async_commit();
+  }
+#pragma unroll 1
+  for (int k = 0; g < tiles; ++k, g += gridDim.x) {
+    cp_async_wait<XT_STAGES - 2>();  // tile k's copies have landed
+    __syncthreads();  // ... every thread's; slot (k - 1) % XT_STAGES is free
+    fetch(g + (long long)(XT_STAGES - 1) * gridDim.x,
+          (k + XT_STAGES - 1) % XT_STAGES);
+    cp_async_commit();
+    const Tile t = tile_at(g);
+    const char* s = (const char*)xsm + (k % XT_STAGES) * XT_TILE_BYTES;
+    for (int q = threadIdx.x; q < NRB * NC; q += XT_THREADS) {
+      const int rb = q % NRB, kb = q / NRB;  // output chunk, input chunk
+      uint4 a[EPC], o[EPC];
+#pragma unroll
+      for (int j = 0; j < EPC; ++j) {
+        const int r = rb * EPC + j;
+        a[j] = r < t.nr ? *(const uint4*)(s + xchunk<EPC, NC>(r, kb) * 16)
+                        : make_uint4(0, 0, 0, 0);
+      }
+      xpose(a, o);
+      // output row e = kb * EPC + i: column (x, d) = c0 + e (TO) or row
+      // h0 + e; its elements rb * EPC + j
+      long long x = 0;
+      int d = 0;
+      if (TO) {
+        const long long c = t.c0 + kb * EPC;
+        x = c / D;
+        d = (int)(c % D);
+      }
+#pragma unroll
+      for (int i = 0; i < EPC; ++i) {
+        const int e = kb * EPC + i;
+        if (e < t.ne) {
+          T* dst = (TO ? out + ((t.b * D + d) * W + x) * (long long)HP + t.h0
+                       : out + (t.b * H + t.h0 + e) * WD + t.c0) +
+                   rb * EPC;
+          if (vec_out) {
+            if (rb * EPC < t.len) *(uint4*)dst = o[i];
+          } else {
+#pragma unroll
+            for (int j = 0; j < EPC; ++j)
+              if (rb * EPC + j < t.len) dst[j] = elem<T>(o[i], j);
+          }
+        }
+        if (TO && ++d == D) {
+          d = 0;
+          ++x;
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// B8b's launch: as many blocks as the card holds at once, or one a tile
+// where there are fewer tiles. plan, when not NULL, receives four host
+// ints: blocks per multiprocessor, multiprocessors, blocks, tiles.
+template <typename T, bool TO>
 int launch_transpose(const void* in, void* out, int B, int H, int W, int D,
-                     int HP, int to_wmajor, cudaStream_t s) {
-  dim3 block(TT, 8);
-  if (to_wmajor) {
-    dim3 grid((unsigned)B * W, (HP + TT - 1) / TT, (D + TT - 1) / TT);
-    to_wmajor_kernel<T><<<grid, block, 0, s>>>((const T*)in, (T*)out, H, W,
-                                               D, HP);
-  } else {
-    dim3 grid((unsigned)B * W, (H + TT - 1) / TT, (D + TT - 1) / TT);
-    from_wmajor_kernel<T><<<grid, block, 0, s>>>((const T*)in, (T*)out, H, W,
-                                                 D, HP);
+                     int HP, int* plan, cudaStream_t s) {
+  if (B < 1 || H < 1 || W < 1 || D < 1 || HP < H)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = transpose_kernel<T, TO>;
+  constexpr int smem = XT_STAGES * XT_TILE_BYTES;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess)
+    return (int)e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, XT_THREADS, smem)) != cudaSuccess)
+    return (int)e;
+  if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
+  constexpr int CW = XT_ROW_BYTES / (int)sizeof(T);
+  const long long wd = (long long)W * D;
+  const long long tiles = (long long)B * (((TO ? HP : H) + XT_H - 1) / XT_H) *
+                          ((wd + CW - 1) / CW);
+  const int blocks = (int)std::min(tiles, (long long)per_sm * sms);
+  if (plan) {
+    plan[0] = per_sm;
+    plan[1] = sms;
+    plan[2] = blocks;
+    plan[3] = (int)std::min(tiles, 2147483647LL);
   }
+  auto aligned = [](const void* p) { return (uintptr_t)p % 16 == 0; };
+  const bool rows_h = (long long)HP * sizeof(T) % 16 == 0;
+  const bool rows_c = wd * (long long)sizeof(T) % 16 == 0;
+  const int vec_in = aligned(in) && (TO ? rows_c : rows_h);
+  const int vec_out = aligned(out) && (TO ? rows_h : rows_c);
+  kernel<<<blocks, XT_THREADS, smem, s>>>((const T*)in, (T*)out, B, H, W, D,
+                                          HP, vec_in, vec_out);
   return (int)cudaGetLastError();
 }
 
@@ -501,15 +683,23 @@ extern "C" int v3d_wmajor_horizontal(void* cost, void* acc, int B, int D,
                          (cudaStream_t)stream);
 }
 
-// Exact layout change of 2- or 4-byte elements: to_wmajor != 0 maps
-// (B, H, W, D) -> (B, D, W, HP), else (B, D, W, HP) -> (B, H, W, D).
+// B8b, an exact layout change of 2- or 4-byte elements: to_wmajor != 0
+// maps (B, H, W, D) -> (B, D, W, HP), rows h >= H zero, else
+// (B, D, W, HP) -> (B, H, W, D). plan as launch_transpose.
 extern "C" int v3d_wmajor_transpose(void* in, void* out, int B, int H, int W,
                                     int D, int HP, int elem_size,
-                                    int to_wmajor, void* stream) {
+                                    int to_wmajor, void* plan, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  int* pl = (int*)plan;
   if (elem_size == 2)
-    return launch_transpose<uint16_t>(in, out, B, H, W, D, HP, to_wmajor, s);
+    return to_wmajor ? launch_transpose<uint16_t, true>(in, out, B, H, W, D,
+                                                        HP, pl, s)
+                     : launch_transpose<uint16_t, false>(in, out, B, H, W,
+                                                         D, HP, pl, s);
   if (elem_size == 4)
-    return launch_transpose<uint32_t>(in, out, B, H, W, D, HP, to_wmajor, s);
+    return to_wmajor ? launch_transpose<uint32_t, true>(in, out, B, H, W, D,
+                                                        HP, pl, s)
+                     : launch_transpose<uint32_t, false>(in, out, B, H, W,
+                                                         D, HP, pl, s);
   return (int)cudaErrorInvalidValue;
 }

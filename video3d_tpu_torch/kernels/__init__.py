@@ -60,10 +60,16 @@ Every TPU kernel of the JAX package (each function reaching
                                                               vertical sweep step storing the
                                                               f32 total: 3 launches at 8 paths)
  B8b  kernels/sgm.py:254,279 transpose_to/from_wmajor         csrc/wmajor.cu, kernels/wmajor.py
+                                                              (redesigned: one persistent launch a
+                                                              way, 64-row by 256-byte tiles through
+                                                              a swizzled cp.async ring, 16-byte
+                                                              accesses on both sides)
  B8c  kernels/sgm.py:391 _directional_pass_wmajor             csrc/wmajor.cu, kernels/wmajor.py
  P    tools/probe_i16.py:34 run (toy kernels :50-70)          csrc/probe_i16.cu,
                                                               tools/probe_i16.py (a toolchain
-                                                              probe, outside the stage)
+                                                              probe, outside the stage;
+                                                              redesigned: the six ops in one
+                                                              launch, probe_all)
 ==== ======================================================= ===============================
 
 ``sgm_aggregate_pallas_dmajor`` (kernels/sgm.py:1018) only calls B2; the

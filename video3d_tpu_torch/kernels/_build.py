@@ -54,9 +54,9 @@ _SIGNATURES = {
                          _P, _P],
     "v3d_wmajor_horizontal": [_P, _P, _I, _I, _I, _I, _F, _F, _I, _I, _P,
                               _P],
-    "v3d_wmajor_transpose": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "v3d_wmajor_transpose": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     # probe_i16.cu
-    "v3d_probe_i16": [_I, _P, _P, _P, _P, _I, _I, _P],
+    "v3d_probe_i16_all": [_P, _P, _P, _P, _I, _I, _I, _P],
     # speckle.cu
     "v3d_speckle": [_P, _P, _I, _I, _I, _F, _F, _F, _I, _I, _I, _P],
     # warp.cu

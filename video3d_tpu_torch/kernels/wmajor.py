@@ -10,8 +10,12 @@ in one launch (JAX ``_horizontal_passes_wmajor`` runs two sweeps), and
 replaces ``transpose_to_wmajor`` and ``transpose_from_wmajor``: exact
 layout changes between the port's ``(B, H, W, D)`` volume and
 ``(B, D, W, HP)``, HP = H rounded up to 128, whose padding lanes the port
-writes as zero (no consumer reads them). The JAX package takes its ``mxu``
-transposes only when W % 128 == 0; these take any width. The plain twins
+writes as zero (no consumer reads them); one persistent launch a call
+moves 64-row by 256-byte tiles through a swizzled shared ring, 16 bytes a
+thread on both sides (``csrc/wmajor.cu transpose_kernel``). The JAX
+package takes its ``mxu`` transposes only when W % 128 == 0; these take
+any width, height and D, element by element where a row is no multiple of
+16 bytes or a pointer is not 16-byte aligned. The plain twins
 are :func:`wmajor_sweep_plain`, :func:`horizontal_sweeps_wmajor_plain`,
 :func:`transpose_to_wmajor_plain` and :func:`transpose_from_wmajor_plain`.
 """
@@ -29,6 +33,9 @@ from video3d_tpu_torch.ops.stereo import (SGBMParams, acc_dtype_for_params,
                                           sgm_sweep_dmajor)
 
 transpose_launches = 0  # B8b: calls that launched a CUDA transpose
+# B8b's last launch: (blocks per multiprocessor, multiprocessors, blocks
+# launched, tiles of 64 rows by 256 bytes), or None
+transpose_plan = None
 sweep_launches = 0  # B8c: launches of the CUDA W-major sweeps, both entries
 # B8c's last launch: (blocks per multiprocessor, multiprocessors, blocks
 # launched, rounds of row tiles a block takes, rows a tile, shared bytes a
@@ -64,14 +71,16 @@ def transpose_from_wmajor_plain(acc_t: torch.Tensor, h: int) -> torch.Tensor:
 
 def _transpose(x: torch.Tensor, out: torch.Tensor, h: int,
                to_wmajor: bool) -> torch.Tensor:
-    global transpose_launches
+    global transpose_launches, transpose_plan
     if x.dtype not in _CODE:
         raise ValueError(f"wmajor transpose: int16 or f32, got {x.dtype}")
     _build.require(x, x.dtype, 4, "wmajor transpose")
     b, d, w, hp = out.shape if to_wmajor else x.shape
+    plan = (ctypes.c_int * 4)()
     _build.check(_build.lib().v3d_wmajor_transpose(
         x.data_ptr(), out.data_ptr(), b, h, w, d, hp, x.element_size(),
-        int(to_wmajor), _build.stream_of(x)), "v3d_wmajor_transpose")
+        int(to_wmajor), plan, _build.stream_of(x)), "v3d_wmajor_transpose")
+    transpose_plan = tuple(plan)
     transpose_launches += 1
     return out
 

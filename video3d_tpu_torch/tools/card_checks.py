@@ -1,4 +1,4 @@
-"""Small-shape checks of kernels B1-B6, B8a and B8c against their plain
+"""Small-shape checks of kernels B1-B6, B8a-c and P against their plain
 twins.
 
 The shapes stress what the 1080p run at D = 64 does not: widths that are
@@ -28,8 +28,16 @@ to the twin and to a second run. B8a (``sgm_aggregate_pallas``) runs 2, 4,
 penalties (one pair not exact in f32), D from 1 to 128 (57 and 40: no
 multiple of a lane's run), widths 1 to 257, heights 1 to 137, and batches
 that make the 3-direction launch take 32-warp blocks or run in two
-chunks; each case bit-equal to the twin and to a second run.
-``chip_smoke.py``
+chunks; each case bit-equal to the twin and to a second run. B8b runs
+the CPU emulation's shapes (``tests/test_torch_transpose.py``): heights
+with padding rows and without (H = HP = 128), widths 1 to 257, D 1 to 128
+(rows of no multiple of 16 bytes), int16 and f32, from 16-byte aligned
+storage and from storage one element past it (the element-by-element
+path); each way bit-equal to the twin and to a second run, the inverse
+from a W-major volume whose padding rows hold garbage. P runs all six ops
+in one launch and each op alone at ragged shapes (n and the last axis no
+multiple of 8, rows shorter than the select's 4 columns), aligned and
+not, bit-equal to the torch expressions. ``chip_smoke.py``
 and ``tests/test_torch_card.py`` both run them on the card; the functions
 raise ``AssertionError`` on a mismatch.
 """
@@ -45,6 +53,7 @@ from video3d_tpu_torch.ops import flow
 from video3d_tpu_torch.ops.image import resize2d
 from video3d_tpu_torch.ops.speckle import speckle_filter_device
 from video3d_tpu_torch.ops.stereo import SGBMParams, sgm_aggregate
+from video3d_tpu_torch.tools import probe_i16
 
 # (batch, height, width, num_disparities, min_disparity, block_size)
 B1_CASES = [
@@ -173,6 +182,38 @@ B8A_CASES = [(2, 30, 70, 40, paths, t, 6.0, 24.0)
     (40, 9, 257, 64, 5, "bf16", 6.5, 24.25),
 ]
 _B8A_TYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+# (batch, height, width, num_disparities), each run in int16 and f32
+B8B_CASES = [
+    (1, 1, 1, 1),
+    (2, 40, 90, 64),
+    (1, 64, 3, 17),
+    (1, 70, 257, 40),
+    (3, 128, 90, 128),    # H = HP: no padding row
+    (1, 130, 257, 1),
+    (2, 130, 3, 64),
+    (1, 40, 257, 128),
+    (1, 64, 90, 17),
+    (2, 70, 1, 40),
+    (1, 1, 257, 64),
+    (1, 128, 3, 1),
+    (1, 130, 90, 17),
+    (1, 64, 1, 128),
+]
+
+# shapes of the probe's inputs: n and the last axis no multiple of 8, rows
+# shorter than the select's 4 columns, one element
+P_CASES = [(3, 5, 7), (1,), (2, 3, 9), (5, 13), (4, 3), (17,), (2, 1000),
+           (1, 1, 8), (6, 4), (8, 64, 256)]
+
+
+def _at_offset(x: torch.Tensor, offset: int) -> torch.Tensor:
+    """A contiguous copy of ``x`` whose data starts ``offset`` elements
+    past the start of a fresh allocation (1: not 16-byte aligned)."""
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)
+    out = buf[offset:].view(x.shape)
+    out.copy_(x)
+    return out
 
 
 def gray_pair(b: int, h: int, w: int, shift: int, seed: int, device):
@@ -303,6 +344,66 @@ def check_b8a(device, b, h, w, d, paths, cost_type, p1, p2, seed=14) -> None:
     assert torch.equal(got, again), f"{what}: runs differ"
     err = (got.double() - want.double()).abs().max().item()
     assert torch.equal(got, want), f"{what}: max |err| {err}"
+
+
+def check_b8b(device, b, h, w, d, types, seed=15) -> None:
+    """B8b on the card, one launch a way, equals its twin bit for bit and a
+    second run of itself, from aligned storage and from storage one
+    element past it; the inverse reads a W-major volume whose padding rows
+    hold garbage."""
+    dt = _B8C_TYPES[types]
+    r = np.random.default_rng(seed)
+    if dt == torch.int16:
+        x = torch.from_numpy(r.integers(-32768, 32768, (b, h, w, d)).astype(
+            np.int16)).to(device)
+    else:
+        x = torch.from_numpy(r.standard_normal((b, h, w, d)).astype(
+            np.float32)).to(device)
+    want = wmajor.transpose_to_wmajor_plain(x)
+    garbage = want.clone()
+    garbage[..., h:] = torch.from_numpy(r.integers(
+        1, 1000, garbage[..., h:].shape)).to(device, dt)
+    what = f"B8b at {(b, h, w, d)} {types}"
+    for offset in (0, 1):
+        xs, gs = _at_offset(x, offset), _at_offset(garbage, offset)
+        n = wmajor.transpose_launches
+        t, t2 = wmajor.transpose_to_wmajor(xs), wmajor.transpose_to_wmajor(xs)
+        back = wmajor.transpose_from_wmajor(gs, h)
+        back2 = wmajor.transpose_from_wmajor(gs, h)
+        assert wmajor.transpose_launches == n + 4
+        torch.cuda.synchronize(device)
+        where = f"{what}, storage offset {offset}"
+        assert t.shape == want.shape and t.dtype == dt, where
+        assert torch.equal(t, t2) and torch.equal(back, back2), \
+            f"{where}: runs differ"
+        assert torch.equal(t, want), \
+            f"{where}: to differs in {int((t != want).sum().item())} elements"
+        assert torch.equal(back, x), \
+            f"{where}: from differs in {int((back != x).sum().item())} " \
+            f"elements"
+
+
+def check_p(device, shape, seed=16) -> None:
+    """P on the card: the six ops in one launch, and each op alone, equal
+    the torch expressions bit for bit on full-range int16 inputs, from
+    aligned storage and from storage one element past it."""
+    r = np.random.default_rng(seed)
+    xs = [torch.from_numpy(r.integers(-32768, 32768, shape).astype(
+        np.int16)).to(device) for _ in range(3)]
+    want = probe_i16.probe_all_plain(xs)
+    for offset in (0, 1):
+        ins = [_at_offset(x, offset) for x in xs]
+        n = probe_i16.launches
+        got = probe_i16.probe_all(*ins)
+        assert probe_i16.launches == n + 1
+        for k, (name, (_, n_in, _)) in enumerate(probe_i16.OPS.items()):
+            alone = probe_i16.probe_op(name, *ins[:n_in])
+            torch.cuda.synchronize(device)
+            what = f"P {name} at {shape}, storage offset {offset}"
+            assert got[k].shape == tuple(shape), what
+            assert torch.equal(got[k], want[k]), what
+            assert torch.equal(alone, want[k]), f"{what}, alone"
+        assert probe_i16.launches == n + 1 + len(probe_i16.OPS)
 
 
 def speckle_map(b: int, h: int, w: int, fill: str, seed: int, device):

@@ -1,4 +1,4 @@
-"""Times of kernels B2, B8c, B4 and B8a at 1080p over batch sizes.
+"""Times of kernels B2, B8c, B4, B8a, B8b and P over batch sizes.
 
 What ``chip_smoke.py`` does not time: B2 (both horizontal sweeps, int16
 and f32 accumulator), B8c (both W-major horizontal sweeps on the
@@ -10,18 +10,25 @@ D=64, in ms per frame (CUDA events over back-to-back calls), B2's and
 B8c's launch plans beside them; and B8a (``sgm_aggregate_pallas`` at 8
 and 5 paths on the f32 and the bf16 cost volume, B1's volume over 3, with
 the default penalties over 3) with its launches a call where the tree
-records them. ``digest`` prints a SHA-256 of the outputs of B1-B4 (the
-int16 cost, B2's sums at 5 and 8 paths, B3's disparity and margin, B4's
-map) instead of a time, to show that two trees give the same bits.
-Prints the card's name and power limit first. The script uses only entry
-points that trees before the B8a redesign have, so ``PYTHONPATH=<other
-tree> python <this file> b8a digest 2`` runs another checkout's kernels
-in the same call.
+records them; B8b (``transpose_to_wmajor`` and ``transpose_from_wmajor``
+on the batch's int16 cost, HP = 1152, each way and the round trip, in
+CUDA events and in device time from ``torch.profiler``, with the bytes a
+second of the round trip's 4 x volume x 2 B, beside a ``clone`` of the
+volume: the card's copy rate on the same bytes); and P, once (the six int16
+probe ops at the probe's shape: six calls of ``probe_op``, and one call
+of ``probe_all`` where the tree has it, event and device time a call).
+``digest`` prints a SHA-256 of the outputs of B1-B4 (the int16 cost, B2's
+sums at 5 and 8 paths, B3's disparity and margin, B4's map) instead of a
+time, to show that two trees give the same bits. Prints the card's name
+and power limit first. The script uses only entry points that trees
+before the B8a redesign have (and ``probe_all`` where present), so
+``PYTHONPATH=<other tree> python <this file> b8a b8b p digest 2`` runs
+another checkout's kernels in the same call.
 
 Usage: ``python -m video3d_tpu_torch.tools.time_kernels [kernel ...]
 [batch ...]`` on a CUDA card; kernels are ``b2``, ``b8c``, ``b4``,
-``b8a`` and ``digest`` (default: all but ``digest``), batches default to
-1, 2, 4 and 8.
+``b8a``, ``b8b``, ``p`` and ``digest`` (default: all but ``digest``),
+batches default to 1, 2, 4 and 8.
 """
 
 from __future__ import annotations
@@ -36,7 +43,10 @@ from video3d_tpu_torch.kernels import costvol, sgm, speckle, wmajor
 from video3d_tpu_torch.ops.stereo import (INVALID, SGBMParams,
                                           acc_dtype_for_params)
 from video3d_tpu_torch.stages.depth import gray_pair
+from video3d_tpu_torch.tools import probe_i16
 from video3d_tpu_torch.tools.profile_stage import sbs_batch
+
+HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate
 
 
 def cuda_ms(fn, reps: int = 10) -> float:
@@ -53,7 +63,29 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return start.elapsed_time(end) / reps
 
 
-KERNELS = ("b2", "b8c", "b4", "b8a", "digest")
+def device_ms(fn, reps: int = 10):
+    """Mean device milliseconds per call of ``fn`` from a ``torch.profiler``
+    trace of ``reps`` calls after one warm-up: per kernel, its mean time a
+    record times its launches a call (rounded: a trace has been seen to
+    drop a record), or None when the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.device_time_total / e.count * round(e.count / reps)
+                   for e in prof.key_averages() if e.count)
+    return total_us / 1e3 if total_us > 0 else None
+
+
+def _dev(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
+KERNELS = ("b2", "b8c", "b4", "b8a", "b8b", "p", "digest")
 
 
 def main(argv=None) -> int:
@@ -73,11 +105,14 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True,
         text=True).stdout.strip().splitlines()[0])
     p = SGBMParams()
-    timers = {"b2": b2, "b8a": b8a, "b8c": b8c, "b4": b4, "digest": digest}
+    if "p" in kernels:
+        probe()
+    timers = {"b2": b2, "b8a": b8a, "b8c": b8c, "b4": b4, "b8b": b8b,
+              "digest": digest}
     for nb in batches or [1, 2, 4, 8]:
         gl, gr = gray_pair(torch.from_numpy(sbs_batch(nb)).to("cuda"))
         cost = costvol.cost_volume(gl, gr, p, 2.0 * p.prefilter_cap)
-        for name in KERNELS:
+        for name in timers:
             if name in kernels:
                 timers[name](cost, p, nb)
         del cost
@@ -130,6 +165,60 @@ def b8c(cost, p, nb: int) -> None:
                   f"blocks, rounds, rows a tile, shared bytes = "
                   f"{wmajor.horizontal_plan}")
         del acc_t
+
+
+def b8b(cost, p, nb: int) -> None:
+    """B8b each way and the round trip on the batch's int16 cost."""
+    h = cost.shape[1]
+    cost_t = wmajor.transpose_to_wmajor(cost)
+    nbytes = 4 * cost.numel() * cost.element_size() / nb  # a frame's trip
+    for name, fn in (
+            ("to", lambda: wmajor.transpose_to_wmajor(cost)),
+            ("from", lambda: wmajor.transpose_from_wmajor(cost_t, h)),
+            ("to + from", lambda: wmajor.transpose_from_wmajor(
+                wmajor.transpose_to_wmajor(cost), h))):
+        ms = cuda_ms(fn, 20) / nb
+        dev = device_ms(fn)
+        dev = None if dev is None else dev / nb
+        rate = ("" if name != "to + from" else
+                f"; {nbytes / ms / 1e9:.3f} TB/s of the bound's "
+                f"{nbytes / 1e6:.0f} MB (bound "
+                f"{nbytes / HBM_BYTES_S * 1e3:.4f} ms)")
+        print(f"B8b {name}, batch {nb}: {ms:.4f} ms/frame, device "
+              f"{_dev(dev)}{rate}; plan "
+              f"{getattr(wmajor, 'transpose_plan', None)}")
+    # the card's copy rate on these bytes: one device-to-device copy of
+    # the volume reads and writes it once, half a round trip's bytes
+    ms = cuda_ms(lambda: cost.clone(), 20) / nb
+    print(f"copy of the int16 volume (clone), batch {nb}: {ms:.4f} "
+          f"ms/frame = {nbytes / 2 / ms / 1e9:.3f} TB/s")
+    del cost_t
+
+
+def probe() -> None:
+    """P at the probe's shape: six one-op calls, and one call of all six
+    where the tree has ``probe_all``."""
+    xs = probe_i16.probe_inputs("cuda")
+    ops = list(probe_i16.OPS.items())
+
+    def six():
+        for name, (_, n_in, _) in ops:
+            probe_i16.probe_op(name, *xs[:n_in])
+
+    n = probe_i16.launches
+    six()
+    per = probe_i16.launches - n
+    print(f"P six probe_op calls: {cuda_ms(six, 100):.4f} ms, device "
+          f"{_dev(device_ms(six, 100))} ms ({per} launches)")
+    probe_all = getattr(probe_i16, "probe_all", None)
+    if probe_all is not None:
+        n = probe_i16.launches
+        probe_all(*xs)
+        per = probe_i16.launches - n
+        print(f"P one probe_all call: "
+              f"{cuda_ms(lambda: probe_all(*xs), 100):.4f} ms, device "
+              f"{_dev(device_ms(lambda: probe_all(*xs), 100))} ms ({per} "
+              f"launch)")
 
 
 def digest(cost, p, nb: int) -> None:
