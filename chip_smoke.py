@@ -150,7 +150,7 @@ def pan_frames(n: int, seed: int) -> np.ndarray:
     grain) panning PAN_EYE eye pixels per frame: frame t's left eye is
     base[:, PAN_EYE*t:], so cur(x) = prev(x + PAN_EYE) (backward flow
     +PAN_EYE). The right eye is the left shifted by SHIFT_EYE, as in
-    ``tools/profile_stage.py sbs_batch``, which makes the still frames."""
+    ``tools/time_kernels.py sbs_batch``, which makes the still frames."""
     rng = np.random.default_rng(seed)
     w_eye = W_SBS // 2
     span = w_eye + SHIFT_EYE + PAN_EYE * n
@@ -344,7 +344,7 @@ def main() -> int:
                                                 rgb_eyes)
     from video3d_tpu_torch.stages.upscale import DepthUpscaler
     from video3d_tpu_torch.tools import card_checks, probe_i16
-    from video3d_tpu_torch.tools.profile_stage import sbs_batch
+    from video3d_tpu_torch.tools.time_kernels import sbs_batch
 
     def sbs_frames(n: int, seed: int) -> np.ndarray:
         """(n, 1080, 1920, 3) uint8 SBS frames, the eyes SHIFT_EYE apart,

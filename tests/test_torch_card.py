@@ -18,7 +18,9 @@ run at the shapes of the ``cuda`` tests beside their CPU tests. Gates are
 the smoke's: B1, B2, B4, B8a-c and P bit-exact; B3 identical validity,
 disparity within 1e-5, margin within rtol 1e-6; B5 1e-5 (its EMA step
 1e-4 on unit-scale depth); B6 2e-4 px, its level step too; B7
-1e-5 in f32 and one bf16 ulp on >= 99.9% of the outputs.
+1e-5 in f32 and one bf16 ulp on >= 99.9% of the outputs. The depth
+stage's spans (``core/trace.py``) are held to the device trace's clock on
+a 1080p batch of the CREStereo hybrid.
 """
 
 import numpy as np
@@ -189,3 +191,52 @@ def test_probe_ops_match_torch(dev):
 @pytest.mark.parametrize("shape", card_checks.P_CASES, ids=str)
 def test_p_cases_match_torch(dev, shape):
     card_checks.check_p(dev, shape)
+
+
+def test_spans_share_the_device_trace_clock(dev):
+    """The stage's spans on a 1080p batch of the CREStereo hybrid under a
+    CPU+CUDA profile: ``matcher.speckle``'s host interval holds B4's
+    ``cudaLaunchKernel`` event, and the stage's child spans' device times
+    add up to the stage's within 5%."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from video3d_tpu_torch.core import trace
+    from video3d_tpu_torch.models.crestereo import load_crestereo_guidance
+    from video3d_tpu_torch.stages.depth import depth_batch_pipeline
+    from video3d_tpu_torch.tools.time_kernels import sbs_batch
+
+    frames = torch.from_numpy(sbs_batch(8)).to(dev)
+    opts = dict(guidance_fn=load_crestereo_guidance(device=dev),
+                guidance_every=4, fill_holes=True)
+    depth_batch_pipeline(frames, **opts)  # builds, plans, warms
+    torch.cuda.synchronize()
+    trace.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(2):
+                depth_batch_pipeline(frames, **opts)
+            torch.cuda.synchronize()
+        recs = trace.records()
+    finally:
+        trace.reset()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.profiler.kineto_results.events()
+    b4 = {e.correlation_id() for e in events
+          if e.device_type() == cuda and "speckle_kernel" in e.name()}
+    launches = [(e.start_ns(), e.start_ns() + e.duration_ns())
+                for e in events if e.device_type() != cuda
+                and "LaunchKernel" in e.name() and e.correlation_id() in b4]
+    speckle = [r for r in recs if r["name"] == "matcher.speckle"]
+    assert b4 and len(launches) == len(b4) and len(speckle) == 2
+    for a, b in launches:
+        assert any(r["start_ns"] <= a and b <= r["end_ns"] for r in speckle)
+    assert all(any(r["start_ns"] <= a and b <= r["end_ns"]
+                   for a, b in launches) for r in speckle)
+    stages = [i for i, r in enumerate(recs) if r["name"] == "stage"]
+    assert len(stages) == 2
+    for i in stages:
+        kids = [r["device_ms"] for r in recs if r["parent"] == i]
+        assert all(ms is not None for ms in kids) and len(kids) == 6
+        assert abs(sum(kids) - recs[i]["device_ms"]) <= \
+            0.05 * recs[i]["device_ms"], (sum(kids), recs[i]["device_ms"])

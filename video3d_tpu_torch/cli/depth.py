@@ -8,19 +8,26 @@ safetensors dir>`` the DPT hybrid. Accepts the JAX CLI's flags
 (``video3d_tpu.cli.depth``); those of features not yet ported (and
 ``--guidance mono``) exit with "not yet ported" instead of being ignored.
 ``--device`` defaults to ``cuda``; ``--device cpu`` is the only way onto
-the CPU (the kernels' plain twins).
+the CPU (the kernels' plain twins). ``--profile-dir DIR`` runs the
+extraction under ``torch.profiler`` (CPU, and CUDA on a card), writes its
+Chrome trace to ``DIR`` with the port's spans merged in as a track of
+their own (:mod:`video3d_tpu_torch.core.trace`), and prints the spans by
+name at the end.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import sys
+import time
+from pathlib import Path
 
 # flags of the JAX CLI whose features the port does not have yet
 _NOT_PORTED = (
     "auto_range", "range_sample_frames", "auto_range_shots",
     "shot_threshold", "multihost", "coordinator", "num_processes",
-    "process_id", "profile_dir",
+    "process_id",
 )
 
 
@@ -85,6 +92,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Alias of --temporal-smooth median")
     p.add_argument("--force", action="store_true",
                    help="Recompute even if cached")
+    p.add_argument("--profile-dir", default=None,
+                   help="Write a torch.profiler Chrome trace of the run, "
+                        "with the port's spans as a track of their own, "
+                        "to this directory, and print the spans by name")
     for name in _NOT_PORTED:
         p.add_argument("--" + name.replace("_", "-"), dest=name,
                        nargs="?", const=True, default=None,
@@ -130,12 +141,42 @@ def main(argv=None) -> int:
         trust_scale=args.trust_scale,
         device=args.device,
     )
-    cache = extractor.process_video_sbs(
-        args.video, start_frame=args.start_frame,
-        max_frames=args.max_frames, force=args.force,
+    run = functools.partial(
+        extractor.process_video_sbs, args.video,
+        start_frame=args.start_frame, max_frames=args.max_frames,
+        force=args.force,
     )
+    cache = run() if args.profile_dir is None else _profiled(
+        run, Path(args.profile_dir), extractor.device)
     print(f"Depth maps: {cache}")
     return 0
+
+
+def _profiled(run, out_dir: Path, device):
+    """``run()`` under ``torch.profiler``; its Chrome trace, with the
+    port's spans merged in, goes to ``out_dir``, and the spans' summary to
+    standard output."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from video3d_tpu_torch.core import trace
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    trace.reset()
+    with profile(activities=activities) as prof:
+        result = run()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / f"depth_{time.strftime('%Y%m%d_%H%M%S')}.pt.trace.json"
+    prof.export_chrome_trace(str(path))
+    n = trace.merge_chrome_trace(path)
+    print(f"Profile: {path} ({n} spans)")
+    print(trace.format_summary(trace.summary()))
+    trace.reset()
+    return result
 
 
 if __name__ == "__main__":

@@ -3,7 +3,8 @@
 A copy of what the port uses from the JAX package's host layer: probing,
 streaming frame decode and encode, 16-bit PNG depth-map I/O, content-hash
 cache keys and the work-dir layout. It imports neither ``jax`` nor ``torch``, and
-nothing of ``video3d_tpu``. ``_native`` loads the C++ PNG16 encoder and
+nothing of ``video3d_tpu``; its one module that imports ``torch``,
+``trace`` (the span recorder), is not imported here. ``_native`` loads the C++ PNG16 encoder and
 the MP4 reader from ``native/`` at the root of the checkout (built there
 with ``make -C native`` at first use; OpenCV otherwise). Device code
 never touches this layer except through numpy arrays.

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from video3d_tpu_torch.core.trace import span
 from video3d_tpu_torch.models.guidance import GuidanceFn, loader_device
 from video3d_tpu_torch.ops.image import resize2d
 
@@ -173,34 +174,42 @@ class CREStereoLite(nn.Module):
         self.head = Conv2d(c.hidden_dim, 1, 3, dtype=c.dtype)
 
     def forward(self, left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
+        """The encoders, the correlation, the GRU steps and the upsample
+        are host-only ``guide.*`` spans (:mod:`video3d_tpu_torch.core.trace`:
+        the forward's launches set its pace)."""
         c = self.cfg
-        x = torch.cat([left, right], dim=0) / 127.5 - 1.0
-        fl, fr = self.fnet(x.permute(0, 3, 1, 2)).chunk(2, dim=0)
-        ctx = self.cnet((left / 127.5 - 1.0).permute(0, 3, 1, 2))
-        hidden = torch.tanh(ctx[:, :c.hidden_dim])
-        context = torch.relu(ctx[:, c.hidden_dim:])
+        with span("guide.features"):
+            x = torch.cat([left, right], dim=0) / 127.5 - 1.0
+            fl, fr = self.fnet(x.permute(0, 3, 1, 2)).chunk(2, dim=0)
+            ctx = self.cnet((left / 127.5 - 1.0).permute(0, 3, 1, 2))
+            hidden = torch.tanh(ctx[:, :c.hidden_dim])
+            context = torch.relu(ctx[:, c.hidden_dim:])
 
-        corr = build_corr_volume(fl, fr, max(2, c.max_disparity // 4))
-        pyramid = [corr]
-        for _ in range(c.corr_levels - 1):
-            prev = pyramid[-1]
-            if prev.shape[-1] % 2:  # pad an odd level with its last bin
-                prev = torch.cat([prev, prev[..., -1:]], dim=-1)
-            pyramid.append(prev.unflatten(-1, (-1, 2)).mean(-1))
+        with span("guide.corr"):
+            corr = build_corr_volume(fl, fr, max(2, c.max_disparity // 4))
+            pyramid = [corr]
+            for _ in range(c.corr_levels - 1):
+                prev = pyramid[-1]
+                if prev.shape[-1] % 2:  # pad an odd level with its last bin
+                    prev = torch.cat([prev, prev[..., -1:]], dim=-1)
+                pyramid.append(prev.unflatten(-1, (-1, 2)).mean(-1))
+            # winner-take-all init; argmax takes the first maximum
+            disp = torch.argmax(corr, dim=-1).float()
 
-        # winner-take-all init; argmax takes the first maximum
-        disp = torch.argmax(corr, dim=-1).float()
-        for _ in range(c.iters):
-            lookups = [lookup_corr(lv, disp / float(2 ** i), c.lookup_radius)
-                       for i, lv in enumerate(pyramid)]
-            motion = torch.cat(lookups + [disp.unsqueeze(-1)], dim=-1)
-            motion = torch.relu(self.menc(motion.permute(0, 3, 1, 2)))
-            hidden = self.gru(hidden, torch.cat([motion, context], dim=1))
-            disp = disp + self.head(hidden)[:, 0].float()
+        with span("guide.gru"):
+            for _ in range(c.iters):
+                lookups = [lookup_corr(lv, disp / float(2 ** i),
+                                       c.lookup_radius)
+                           for i, lv in enumerate(pyramid)]
+                motion = torch.cat(lookups + [disp.unsqueeze(-1)], dim=-1)
+                motion = torch.relu(self.menc(motion.permute(0, 3, 1, 2)))
+                hidden = self.gru(hidden, torch.cat([motion, context], dim=1))
+                disp = disp + self.head(hidden)[:, 0].float()
 
-        h, w = left.shape[1], left.shape[2]
-        return torch.clamp(resize2d(disp, h, w, method="bilinear") * 4.0,
-                           min=0.0)
+        with span("guide.resize_out"):
+            h, w = left.shape[1], left.shape[2]
+            return torch.clamp(resize2d(disp, h, w, method="bilinear") * 4.0,
+                               min=0.0)
 
 
 # ---------------------------------------------------------------------------
@@ -270,11 +279,13 @@ def load_crestereo_guidance(checkpoint=BUNDLED_WEIGHTS,
             if s == 1:
                 return module(left, right)
             hs, ws = h // s, w // s
-            ls, rs = (resize2d(e.movedim(-1, 1), hs, ws,
-                               method="bilinear").movedim(1, -1)
-                      for e in (left, right))
-            return resize2d(module(ls, rs) * float(s), h, w,
-                            method="bilinear")
+            with span("guide.resize_in"):
+                ls, rs = (resize2d(e.movedim(-1, 1), hs, ws,
+                                   method="bilinear").movedim(1, -1)
+                          for e in (left, right))
+            disp = module(ls, rs)
+            with span("guide.resize_out"):
+                return resize2d(disp * float(s), h, w, method="bilinear")
 
     return GuidanceFn(apply_fn, model, stereo=True)
 

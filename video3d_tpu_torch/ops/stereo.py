@@ -25,6 +25,8 @@ import dataclasses
 
 import torch
 
+from video3d_tpu_torch.core.trace import span
+
 BIG = 1e9  # carry sentinel of the float sweeps
 # int16 accumulator bound: every 5-path total at the defaults stays below
 # it (see acc_dtype_for_params), so int16 accumulation is exact
@@ -489,7 +491,8 @@ def sgbm_disparity(
     JAX package's ``VIDEO3D_TPU_SGM_TRANSPOSE``; every route gives the same
     disparities. CUDA tensors run the kernels, CPU tensors their plain
     twins. ``return_margin`` also returns the texture-gated match
-    confidence, as the JAX function does.
+    confidence, as the JAX function does. Each step is a ``matcher.*``
+    span (:mod:`video3d_tpu_torch.core.trace`).
     """
     from video3d_tpu_torch.kernels import costvol, sgm, speckle, wmajor
 
@@ -503,29 +506,35 @@ def sgbm_disparity(
     # sentinel-free int16 cost: out-of-frame matches cost the max valid
     # per-pixel cost; the WTA strip mask keeps them invalid
     raw_invalid = 2.0 * params.prefilter_cap
-    res = costvol.cost_volume(left_gray, right_gray, params, raw_invalid,
-                              return_filtered_left=return_margin)
+    with span("matcher.cost", left_gray):
+        res = costvol.cost_volume(left_gray, right_gray, params, raw_invalid,
+                                  return_filtered_left=return_margin)
     cost, lf = res if return_margin else (res, None)
-    if horizontal_route == "legacy":
-        acc = sgm.horizontal_sweeps(cost, params)
-    else:
-        acc = wmajor.horizontal_sweeps_wmajor(cost, params, horizontal_route)
-    res = sgm.vertical_sweeps_wta(cost, acc, params,
-                                  return_margin=return_margin)
+    with span("matcher.horizontal", left_gray):
+        if horizontal_route == "legacy":
+            acc = sgm.horizontal_sweeps(cost, params)
+        else:
+            acc = wmajor.horizontal_sweeps_wmajor(cost, params,
+                                                  horizontal_route)
+    with span("matcher.vertical", left_gray):
+        res = sgm.vertical_sweeps_wta(cost, acc, params,
+                                      return_margin=return_margin)
     disp, margin = res if return_margin else (res, None)
     if apply_speckle and params.speckle_window_size > 0:
-        disp = speckle.speckle_filter(
-            disp,
-            invalid=INVALID(params),
-            max_diff=float(params.speckle_range),
-            min_region=params.speckle_window_size,
-            value_range=(float(params.min_disparity),
-                         float(params.min_disparity
-                               + params.num_disparities)),
-        )
+        with span("matcher.speckle", left_gray):
+            disp = speckle.speckle_filter(
+                disp,
+                invalid=INVALID(params),
+                max_diff=float(params.speckle_range),
+                min_region=params.speckle_window_size,
+                value_range=(float(params.min_disparity),
+                             float(params.min_disparity
+                                   + params.num_disparities)),
+            )
     if return_margin:
-        conf = match_confidence(
-            margin, texture_energy(lf.to(torch.float32),
-                                   params.prefilter_cap))
+        with span("matcher.confidence", left_gray):
+            conf = match_confidence(
+                margin, texture_energy(lf.to(torch.float32),
+                                       params.prefilter_cap))
         return disp, conf
     return disp

@@ -36,6 +36,7 @@ import torch
 from video3d_tpu_torch.core import (DepthMapWriter, VideoReader,
                                     create_work_directory, depth_cache_dir,
                                     get_video_info, is_depth_cached_range)
+from video3d_tpu_torch.core.trace import span
 from video3d_tpu_torch.models.crestereo import (BUNDLED_WEIGHTS,
                                                 load_crestereo_guidance)
 from video3d_tpu_torch.models.mono import ssi_align
@@ -154,32 +155,34 @@ def guidance_blend(disp: torch.Tensor, margin: Optional[torch.Tensor],
     """
     kev = max(1, int(guidance_every))
     b = left.shape[0]
-
-    def run(*eyes):
-        out = guidance_fn(*(e[::kev] for e in eyes))
-        return out.repeat_interleave(kev, dim=0)[:b] if kev > 1 else out
-
-    if getattr(guidance_fn, "stereo", False):
-        guide = run(left, right)
-    else:
-        mono = run(left)
-        dims = (-2, -1)
-        mmin = mono.amin(dim=dims, keepdim=True)
-        mmax = mono.amax(dim=dims, keepdim=True)
-        guide = ((mono - mmin) / torch.clamp(mmax - mmin, min=1e-6)
-                 * float(params.num_disparities))
+    stereo = getattr(guidance_fn, "stereo", False)
+    with span("guide.forward", left, keyframes=-(-b // kev)):
+        out = guidance_fn(*(e[::kev] for e in
+                            ((left, right) if stereo else (left,))))
+    with span("stage.blend", left):
+        out = out.repeat_interleave(kev, dim=0)[:b] if kev > 1 else out
+        if stereo:
+            guide = out
+        else:
+            mono = out
+            dims = (-2, -1)
+            mmin = mono.amin(dim=dims, keepdim=True)
+            mmax = mono.amax(dim=dims, keepdim=True)
+            guide = ((mono - mmin) / torch.clamp(mmax - mmin, min=1e-6)
+                     * float(params.num_disparities))
+            if blend == "confidence":
+                conf_w = torch.where(
+                    disp > float(params.min_disparity) - 0.5, margin, 0.0)
+                s, t = ssi_align(mono, torch.clamp(disp, min=0.0), conf_w)
+                g_ssi = torch.clamp(mono * s + t, 0.0,
+                                    float(params.num_disparities))
+                guide = torch.where(s > 0.0, g_ssi, guide)
         if blend == "confidence":
-            conf_w = torch.where(disp > float(params.min_disparity) - 0.5,
-                                 margin, 0.0)
-            s, t = ssi_align(mono, torch.clamp(disp, min=0.0), conf_w)
-            g_ssi = torch.clamp(mono * s + t, 0.0,
-                                float(params.num_disparities))
-            guide = torch.where(s > 0.0, g_ssi, guide)
-    if blend == "confidence":
-        return confidence_trust_blend(
-            disp, margin, guide, min_disparity=float(params.min_disparity),
-            trust_scale=trust_scale)
-    return stereo_weight * disp + (1.0 - stereo_weight) * guide
+            return confidence_trust_blend(
+                disp, margin, guide,
+                min_disparity=float(params.min_disparity),
+                trust_scale=trust_scale)
+        return stereo_weight * disp + (1.0 - stereo_weight) * guide
 
 
 def host_copy_async(t: torch.Tensor):
@@ -242,29 +245,44 @@ def depth_batch_pipeline(
     depth (B, H, W'), mixed in by :func:`guidance_blend` with
     ``guidance_every``, ``stereo_weight``, ``blend`` (confidence|fixed)
     and ``trust_scale``.
+
+    Each call is a ``stage`` span with a child span a step
+    (:mod:`video3d_tpu_torch.core.trace`; recorded only under a profiler).
     """
-    left, right = rgb_eyes(frames, unsqueeze)
-    gl, gr = rgb_to_gray(left).contiguous(), rgb_to_gray(right).contiguous()
-    want_margin = guidance_fn is not None and blend == "confidence"
-    res = sgbm_disparity(gl, gr, params, apply_speckle=apply_speckle,
-                         return_margin=want_margin,
-                         horizontal_route=horizontal_route)
-    disp, margin = res if want_margin else (res, None)
-    if fill_holes:
-        # before the blend: the margin at former holes stays ~0, so the
-        # guidance still owns them
-        disp = fill_holes_op(disp, float(params.min_disparity - 1))
-    if guidance_fn is not None:
-        disp = guidance_blend(disp, margin, left, right, guidance_fn, params,
-                              guidance_every=guidance_every,
-                              stereo_weight=stereo_weight, blend=blend,
-                              trust_scale=trust_scale)
-    out = disparity_to_uint16(disp, params.num_disparities, normalize)
-    if return_guide:
-        h, w = gl.shape[-2], gl.shape[-1]
-        s = int(guide_scale)
-        return out, resize2d(gl, -(-h // s), -(-w // s), method="bilinear")
-    return out
+    with span("stage", frames, frames=frames.shape[0]):
+        with span("stage.eyes", frames):
+            left, right = rgb_eyes(frames, unsqueeze)
+        with span("stage.gray", frames):
+            gl = rgb_to_gray(left).contiguous()
+            gr = rgb_to_gray(right).contiguous()
+        want_margin = guidance_fn is not None and blend == "confidence"
+        with span("stage.matcher", frames):
+            res = sgbm_disparity(gl, gr, params, apply_speckle=apply_speckle,
+                                 return_margin=want_margin,
+                                 horizontal_route=horizontal_route)
+        disp, margin = res if want_margin else (res, None)
+        if fill_holes:
+            # before the blend: the margin at former holes stays ~0, so
+            # the guidance still owns them
+            with span("stage.fill", frames):
+                disp = fill_holes_op(disp, float(params.min_disparity - 1))
+        if guidance_fn is not None:
+            with span("stage.guidance", frames):
+                disp = guidance_blend(
+                    disp, margin, left, right, guidance_fn, params,
+                    guidance_every=guidance_every,
+                    stereo_weight=stereo_weight, blend=blend,
+                    trust_scale=trust_scale)
+        with span("stage.quantize", frames):
+            out = disparity_to_uint16(disp, params.num_disparities,
+                                      normalize)
+        if not return_guide:
+            return out
+        with span("stage.guide_out", frames):
+            h, w = gl.shape[-2], gl.shape[-1]
+            s = int(guide_scale)
+            return out, resize2d(gl, -(-h // s), -(-w // s),
+                                 method="bilinear")
 
 
 class StereoDepthExtractor:
@@ -483,7 +501,9 @@ class StereoDepthExtractor:
         emits: the median lags one batch and ends with ``flush()``. One
         batch in flight: a batch's maps are copied to the host
         asynchronously and handed to the PNG writer while the next runs.
-        The guidance model is resolved first (:meth:`load_model`).
+        The guidance model is resolved first (:meth:`load_model`). The
+        upload, smoothing, readback and write are ``extract.*`` spans
+        (:mod:`video3d_tpu_torch.core.trace`).
         """
         self.load_model()
         cuda = self.device.type == "cuda"
@@ -497,22 +517,25 @@ class StereoDepthExtractor:
 
             def drain(p):
                 host, event, start, n_valid = p
-                if event is not None:
-                    event.synchronize()
-                writer.put(host.numpy(), start, n_valid)
+                with span("extract.write", self.device):
+                    if event is not None:
+                        event.synchronize()
+                    writer.put(host.numpy(), start, n_valid)
 
             def stage(maps, start, n_valid):
                 nonlocal pending
-                host, event = host_copy_async(maps)
+                with span("extract.readback", self.device):
+                    host, event = host_copy_async(maps)
                 if pending is not None:
                     drain(pending)
                 pending = (host, event, start, n_valid)
 
             for frames, valid in batches:
-                x = torch.from_numpy(np.ascontiguousarray(frames))
-                if cuda:
-                    x = x.pin_memory()
-                x = x.to(self.device, non_blocking=cuda)
+                with span("extract.upload", self.device):
+                    x = torch.from_numpy(np.ascontiguousarray(frames))
+                    if cuda:
+                        x = x.pin_memory()
+                    x = x.to(self.device, non_blocking=cuda)
                 depth = depth_batch_pipeline(
                     x, params=self.params,
                     unsqueeze=self.unsqueeze_anamorphic,
@@ -533,8 +556,10 @@ class StereoDepthExtractor:
                 if smoother is None:
                     stage(depth, done, valid)
                 else:
-                    out = (smoother.push(depth[:valid], guide[:valid])
-                           if want_guide else smoother.push(depth[:valid]))
+                    with span("extract.smooth", self.device):
+                        out = (smoother.push(depth[:valid], guide[:valid])
+                               if want_guide
+                               else smoother.push(depth[:valid]))
                     if out is not None:
                         stage(out, written, out.shape[0])
                         written += out.shape[0]
@@ -543,7 +568,8 @@ class StereoDepthExtractor:
                     dt = time.time() - t0
                     print(f"  {done} frames ({done / max(dt, 1e-9):.1f} fps)")
             if smoother is not None:
-                out = smoother.flush()
+                with span("extract.smooth", self.device):
+                    out = smoother.flush()
                 if out is not None:
                     stage(out, written, out.shape[0])
             if pending is not None:

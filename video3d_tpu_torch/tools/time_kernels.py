@@ -37,6 +37,7 @@ import hashlib
 import subprocess
 import sys
 
+import numpy as np
 import torch
 
 from video3d_tpu_torch.kernels import costvol, sgm, speckle, wmajor
@@ -44,9 +45,22 @@ from video3d_tpu_torch.ops.stereo import (INVALID, SGBMParams,
                                           acc_dtype_for_params)
 from video3d_tpu_torch.stages.depth import gray_pair
 from video3d_tpu_torch.tools import probe_i16
-from video3d_tpu_torch.tools.profile_stage import sbs_batch
 
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory rate
+
+
+def sbs_batch(n: int, seed: int = 0, h: int = 1080, w_eye: int = 960,
+              shift: int = 8) -> np.ndarray:
+    """(n, h, 2 * w_eye, 3) uint8 SBS frames of random 2-pixel-grain
+    texture; the right eye is the left shifted left by ``shift``. The
+    smoke's stereo, hybrid and MODE_HH frames are these too."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 256, (n, -(-h // 2), (w_eye + shift) // 2 + 1, 3),
+                        dtype=np.uint8)
+    base = np.repeat(np.repeat(base, 2, axis=1), 2, axis=2)
+    base = base[:, :h, :w_eye + shift]
+    return np.ascontiguousarray(np.concatenate(
+        [base[:, :, :w_eye], base[:, :, shift:shift + w_eye]], axis=2))
 
 
 def cuda_ms(fn, reps: int = 10) -> float:
