@@ -36,7 +36,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    whole pyramids, EMA steps at guides from 5x7 to 540x960) and run twice
    for the same bits; B7a/B7b attention at DPT-large's (2, 16, 577, 64) in bf16 and
    f32, at the K=1 hybrid's (8, 16, 577, 64) and at two other sequence
-   lengths. B1, B2, B4, B8a, B8b, B8c and P
+   lengths; I1 (the stage's split, 2x Lanczos-4 unsqueeze and BT.601 in
+   one launch) on 1080p half-SBS batches of 2 and 8, gray only and with
+   the RGB eyes, within 1e-3 of the dense product it replaces (the library
+   call: that product alone), and at ``card_checks.I1_CASES`` (full-SBS
+   1080p too, the ``stereo_fsbs`` path), its launches counted on the
+   stereo and the CREStereo paths. B1, B2, B4, B8a, B8b, B8c and P
    must be bit-exact; B3 must have identical validity and disparity within
    1e-5 (margin within rtol 1e-6); B5 within 1e-5 (its EMA step within
    1e-4 on unit-scale depth), B6 within 2e-4 px (its level step too); B7
@@ -277,10 +282,12 @@ def check(cond: bool, what: str) -> None:
 
 @contextlib.contextmanager
 def twins():
-    """Swap the wrappers of B1-B4 and B7 for their plain twins, so the
+    """Swap the wrappers of B1-B4, B7 and I1 for their plain twins, so the
     stage's own code runs on the card with no CUDA kernel of the port."""
-    from video3d_tpu_torch.kernels import attention, costvol, sgm, speckle
+    from video3d_tpu_torch.kernels import (attention, costvol, image, sgm,
+                                           speckle)
     from video3d_tpu_torch.ops.attention import attention_plain
+    from video3d_tpu_torch.ops.image import eyes_gray_plain
     from video3d_tpu_torch.ops.speckle import speckle_filter_device
 
     swaps = (
@@ -288,6 +295,7 @@ def twins():
         (sgm, "horizontal_sweeps", sgm.horizontal_sweeps_plain),
         (sgm, "vertical_sweeps_wta", sgm.vertical_sweeps_wta_plain),
         (speckle, "speckle_filter", speckle_filter_device),
+        (image, "eyes_gray", eyes_gray_plain),
         (attention, "attention_multihead",
          lambda q, k, v, sm_scale, heads_per_step=8:
          attention_plain(q, k, v, sm_scale)),
@@ -315,8 +323,8 @@ def main() -> int:
                                         load_depth_png16)
     import video3d_tpu_torch.kernels as kernels_api
     from video3d_tpu_torch.kernels import (_build, attention, costvol,
-                                           flowmatch, sgm, speckle, warp,
-                                           wmajor)
+                                           flowmatch, image, sgm, speckle,
+                                           warp, wmajor)
     from video3d_tpu_torch.core import VideoWriter
     from video3d_tpu_torch.models.crestereo import (BUNDLED_WEIGHTS,
                                                     conv_flops,
@@ -331,7 +339,9 @@ def main() -> int:
                                             flow_match_plain,
                                             warp_bilinear_shifts_plain)
     from video3d_tpu_torch.ops.flow import shift_edge as flow_shift
-    from video3d_tpu_torch.ops.image import resize2d, rgb_to_gray
+    from video3d_tpu_torch.ops.image import (_resample_matrix_on,
+                                             eyes_gray_plain, resize2d,
+                                             rgb_eyes, rgb_to_gray)
     from video3d_tpu_torch.ops.speckle import speckle_filter_device
     from video3d_tpu_torch.ops.stereo import (INVALID, SGBMParams,
                                               acc_dtype_for_params,
@@ -340,8 +350,7 @@ def main() -> int:
     from video3d_tpu_torch.stages.depth import (StereoDepthExtractor,
                                                 depth_batch_pipeline,
                                                 disparity_to_uint16,
-                                                gray_pair, guidance_blend,
-                                                rgb_eyes)
+                                                gray_pair, guidance_blend)
     from video3d_tpu_torch.stages.upscale import DepthUpscaler
     from video3d_tpu_torch.tools import card_checks, probe_i16
     from video3d_tpu_torch.tools.time_kernels import sbs_batch
@@ -401,6 +410,46 @@ def main() -> int:
         t, by = bound(*row["work"])
         rows[key] = dict(row, bound_ms=t, bound_by=by,
                          library_ms=row.get("library_ms"))
+
+    # I1: the stage's image ops, gray only (the stereo path) and with the
+    # RGB eyes (the hybrid's), against the twin, which is the dense f32
+    # product the stage ran before; the library call is that product alone
+    frames8 = torch.from_numpy(sbs_frames(8, SEED)).to(dev)
+    mat = _resample_matrix_on(W_SBS // 2, W_SBS, "lanczos4", dev)
+    for tag, xb in (("", frames2), ("@8", frames8)):
+        nb = xb.shape[0]
+        eyes_cf = [e.to(torch.float32).movedim(-1, 1)
+                   for e in torch.split(xb, W_SBS // 2, dim=2)]
+        for rgb in (False, True):
+            got = image.eyes_gray(xb, True, rgb)
+            want = eyes_gray_plain(xb, True, rgb)
+            torch.cuda.synchronize()
+            n_out = 4 if rgb else 2
+            err = max((got[k] - want[k]).abs().max().item()
+                      for k in range(n_out))
+            check(err <= 1e-3, f"I1{tag} rgb={rgb} differs from twin: {err}")
+            out_px = 2 * H * W_SBS * (4 if rgb else 1)
+            add_row(f"I1{'-rgb' if rgb else ''}{tag}",
+                    at=f"ms/frame at 1080p half-SBS, batch {nb}",
+                    name=f"I1 eyes_gray{' with RGB' if rgb else ''}, "
+                         f"batch {nb}",
+                    source="video3d_tpu_torch/csrc/image.cu",
+                    replaces="none (the dense matmul of "
+                             "video3d_tpu/ops/image.py resize_width)",
+                    max_abs_err=err, launches=1,
+                    ms=cuda_ms(lambda: image.eyes_gray(xb, True, rgb),
+                               20) / nb,
+                    plain_ms=cuda_ms(lambda: eyes_gray_plain(xb, True, rgb),
+                                     5) / nb,
+                    library_ms=cuda_ms(lambda: [torch.matmul(e, mat)
+                                                for e in eyes_cf], 5) / nb,
+                    # the SBS frame read once, the f32 eyes written once;
+                    # 3 x 8 multiply-adds and BT.601's 5 an output pixel
+                    work=(H * W_SBS * 3 + out_px * 4,
+                          2 * H * W_SBS * (3 * 8 * 2 + 5)))
+            del got, want
+        del eyes_cf
+    del frames8, mat
 
     cost, lf = costvol.cost_volume(gl, gr, p, inv, return_filtered_left=True)
     check(cost.shape == (B, H, W_SBS, D), f"cost shape {tuple(cost.shape)}")
@@ -603,6 +652,8 @@ def main() -> int:
             card_checks.check_b8b(dev, *case, types)
     for case in card_checks.P_CASES:
         card_checks.check_p(dev, case)
+    for case in card_checks.I1_CASES:
+        card_checks.check_i1(dev, *case)
     print(f"B1 equals its twin at {len(card_checks.B1_CASES)} small shapes "
           f"(D 16-128, widths 33-1000, heights 2-137, min_disparity 0 and "
           f"3, blocks 3-9); B2 at {len(card_checks.B2_CASES)} (widths "
@@ -619,7 +670,10 @@ def main() -> int:
           f"{len(card_checks.B8B_CASES)} in int16 and f32 (heights 1-130, "
           f"widths 1-257, D 1-128, each to and from twice, aligned and "
           f"not); P at {len(card_checks.P_CASES)} ragged shapes (all six "
-          f"ops in one launch and each alone, aligned and not)")
+          f"ops in one launch and each alone, aligned and not); I1 within "
+          f"1e-3 of its twin at {len(card_checks.I1_CASES)} (half- and "
+          f"full-SBS 1080p at batches 8 and 1, ragged and 1-pixel eyes; "
+          f"gray and RGB, the twin's strides, twice each)")
 
     # B8a, the public sgm_aggregate_pallas, at 8 and 5 paths on the f32 and
     # bf16 cost (the B1 volume over 3: non-integer values, the default
@@ -1071,7 +1125,7 @@ def main() -> int:
     def plain_depth(frames_np, params=p):
         """uint16 maps and left gray of the depth path on the plain twins."""
         x = torch.from_numpy(frames_np).to(dev)
-        pgl, pgr = gray_pair(x)
+        pgl, pgr = eyes_gray_plain(x)[:2]
         pcost = costvol.cost_volume_plain(pgl, pgr, params, inv)
         pdisp = sgm.vertical_sweeps_wta_plain(
             pcost, sgm.horizontal_sweeps_plain(pcost, params), params)
@@ -1085,6 +1139,7 @@ def main() -> int:
         "B7": (attention, "launches"), "B8a": (sgm, "aggregate_launches"),
         "B8b": (wmajor, "transpose_launches"),
         "B8c": (wmajor, "sweep_launches"), "P": (probe_i16, "launches"),
+        "I1": (image, "launches"),
     }
 
     def counts(reset: bool = False) -> dict:
@@ -1143,6 +1198,10 @@ def main() -> int:
         # shape
         for key, k in zip(("B1@8", "B2@8", "B3@8", "B4@8"), launches):
             rows[key]["launches"] = k
+        i1 = counts()["I1"]
+        check(i1 == n // batch, f"I1 made {i1} launches for {n // batch} "
+              f"batches")
+        rows["I1"]["launches"] = rows["I1@8"]["launches"] = i1
         check(n == 2 * batch, f"wrote {n} frames")
         maps = read_maps(cache, n)
         check_disparity(maps, "main path")
@@ -1452,6 +1511,8 @@ def main() -> int:
         for key, k in zip(("B1", "B2", "B3", "B4"), claunches):
             rows[key]["launches"] = rows[key + "@8"]["launches"] = k
         rows["B1-i16"]["launches"] = claunches[0]
+        check(cc["I1"] == 2, f"I1 made {cc['I1']} launches for 2 batches")
+        rows["I1-rgb"]["launches"] = rows["I1-rgb@8"]["launches"] = cc["I1"]
         cmaps = read_maps(ccache, n_cre)
         disp_px = cmaps.astype(np.float64) * (p.num_disparities / 65535.0)
         med = float(np.median(disp_px))

@@ -27,8 +27,8 @@ import numpy as np
 import pytest
 import torch
 
-from video3d_tpu_torch.kernels import (attention, flowmatch, sgm, warp,
-                                       wmajor)
+from video3d_tpu_torch.kernels import (attention, flowmatch, image, sgm,
+                                       warp, wmajor)
 from video3d_tpu_torch.ops import flow as tflow
 from video3d_tpu_torch.ops.attention import attention_plain
 from video3d_tpu_torch.tools import card_checks, probe_i16
@@ -193,6 +193,55 @@ def test_p_cases_match_torch(dev, shape):
     card_checks.check_p(dev, shape)
 
 
+@pytest.mark.parametrize("case", card_checks.I1_CASES, ids=str)
+def test_i1_matches_twin(dev, case):
+    card_checks.check_i1(dev, *case)
+
+
+def _stage_frames(dev, b=2, h=40, w=160, seed=21):
+    r = np.random.default_rng(seed)
+    return torch.from_numpy(r.integers(0, 256, (b, h, w, 3),
+                                       dtype=np.uint8)).to(dev)
+
+
+def test_i1_one_launch_a_stage_call(dev):
+    from video3d_tpu_torch.ops.stereo import SGBMParams
+    from video3d_tpu_torch.stages.depth import depth_batch_pipeline
+
+    frames = _stage_frames(dev)
+    p = SGBMParams(num_disparities=16)
+
+    def mono(left):  # a guide that reads the RGB left eye
+        return left.mean(dim=-1)
+
+    for opts in (dict(), dict(unsqueeze=False), dict(guidance_fn=mono),
+                 dict(guidance_fn=mono, unsqueeze=False, return_guide=True)):
+        n = image.launches
+        depth_batch_pipeline(frames, params=p, **opts)
+        assert image.launches == n + 1, opts
+
+
+def test_i1_stage_ignores_tf32(dev):
+    """No f32 matrix product is left on the stereo stage's path: with
+    TF32 allowed its output is the same to the bit."""
+    from video3d_tpu_torch.ops.stereo import SGBMParams
+    from video3d_tpu_torch.stages.depth import depth_batch_pipeline
+
+    frames = _stage_frames(dev, b=2, h=64, w=512)
+    p = SGBMParams(num_disparities=32)
+    old = torch.backends.cuda.matmul.allow_tf32
+    outs = []
+    try:
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            outs.append([depth_batch_pipeline(frames, params=p),
+                         *image.eyes_gray(frames, want_rgb=True)])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
 def test_spans_share_the_device_trace_clock(dev):
     """The stage's spans on a 1080p batch of the CREStereo hybrid under a
     CPU+CUDA profile: ``matcher.speckle``'s host interval holds B4's
@@ -237,6 +286,6 @@ def test_spans_share_the_device_trace_clock(dev):
     assert len(stages) == 2
     for i in stages:
         kids = [r["device_ms"] for r in recs if r["parent"] == i]
-        assert all(ms is not None for ms in kids) and len(kids) == 6
+        assert all(ms is not None for ms in kids) and len(kids) == 5
         assert abs(sum(kids) - recs[i]["device_ms"]) <= \
             0.05 * recs[i]["device_ms"], (sum(kids), recs[i]["device_ms"])

@@ -95,7 +95,7 @@ def test_span_tree_and_counts_of_the_hybrid(tiny_guide):
     assert recs[stage]["parent"] is None and recs[stage]["counts"] == {
         "frames": b}
     assert _children(recs, stage) == [
-        "stage.eyes", "stage.gray", "stage.matcher", "stage.fill",
+        "stage.eyes", "stage.matcher", "stage.fill",
         "stage.guidance", "stage.quantize", "stage.guide_out"]
     idx = {r["name"]: i for i, r in enumerate(recs)}
     assert _children(recs, idx["stage.matcher"]) == [

@@ -68,6 +68,8 @@ _SIGNATURES = {
     # flowmatch.cu
     "v3d_flow_level": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
                        _F, _F, _I, _I, _I, _I, _F, _P],
+    # image.cu
+    "v3d_eyes_gray": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # attention.cu
     "v3d_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
 }

@@ -3,7 +3,10 @@
 Counterpart of :mod:`video3d_tpu.ops.image`. The resamplers are one f32
 ``torch.matmul`` against the same host-built interpolation matrix; the
 callers keep TF32 off (``torch.backends.cuda.matmul.allow_tf32`` False,
-PyTorch's default) so the product stays full f32.
+PyTorch's default) so the product stays full f32. The depth stage's
+split, unsqueeze and gray run on a CUDA device as one kernel
+(:mod:`video3d_tpu_torch.kernels.image`) on the non-zero taps of the same
+matrix (:func:`lanczos_taps`); :func:`eyes_gray_plain` is its plain twin.
 """
 
 from __future__ import annotations
@@ -110,6 +113,32 @@ def bilinear_taps_on(n_in: int, n_out: int, device: torch.device) -> tuple:
     return torch.from_numpy(idx).to(device), torch.from_numpy(w).to(device)
 
 
+@lru_cache(maxsize=64)
+def lanczos_taps(n_in: int, n_out: int) -> tuple:
+    """The non-zero entries of each column of ``resample_matrix(n_in,
+    n_out, "lanczos4")``: (n_out, 8) int32 source indices, ascending, and
+    (n_out, 8) float32 weights, the matrix's own entries (clipped border
+    indices already merged). A column with fewer than 8 non-zero entries
+    is padded with its last index at weight 0."""
+    mat = resample_matrix(n_in, n_out, "lanczos4")
+    idx = np.zeros((n_out, 8), dtype=np.int32)
+    w = np.zeros((n_out, 8), dtype=np.float32)
+    for o in range(n_out):
+        nz = np.flatnonzero(mat[:, o])
+        if len(nz) > 8:
+            raise ValueError(f"lanczos4 column {o} has {len(nz)} taps")
+        idx[o] = np.concatenate([nz, np.full(8 - len(nz), nz[-1])])
+        w[o, :len(nz)] = mat[nz, o]
+    return idx, w
+
+
+@lru_cache(maxsize=64)
+def lanczos_taps_on(n_in: int, n_out: int, device: torch.device) -> tuple:
+    """:func:`lanczos_taps` uploaded once per shape and device."""
+    idx, w = lanczos_taps(n_in, n_out)
+    return torch.from_numpy(idx).to(device), torch.from_numpy(w).to(device)
+
+
 def resize_width(img: torch.Tensor, w_out: int,
                  method: str = "lanczos4") -> torch.Tensor:
     """Resample the last (width) axis of (..., H, W) via one f32 matmul."""
@@ -140,3 +169,29 @@ def resize2d(img: torch.Tensor, h_out: int, w_out: int,
 def unsqueeze_width(img: torch.Tensor, method: str = "lanczos4") -> torch.Tensor:
     """Anamorphic 2x horizontal unsqueeze (reference depth.py:263-266)."""
     return resize_width(img, int(img.shape[-1]) * 2, method)
+
+
+def rgb_eyes(frames: torch.Tensor, unsqueeze: bool = True):
+    """uint8 SBS RGB batch (B, H, W, 3) -> f32 RGB eyes (B, H, W', 3):
+    split and optional 2x Lanczos-4 unsqueeze of each channel."""
+    left, right = split_sbs(frames)
+    left = left.to(torch.float32)
+    right = right.to(torch.float32)
+    if unsqueeze:
+        # resample each RGB channel's width: (B, H, W/2, 3) -> (B, H, W, 3)
+        left = unsqueeze_width(left.movedim(-1, 1)).movedim(1, -1)
+        right = unsqueeze_width(right.movedim(-1, 1)).movedim(1, -1)
+    return left, right
+
+
+def eyes_gray_plain(frames: torch.Tensor, unsqueeze: bool = True,
+                    want_rgb: bool = False):
+    """uint8 SBS RGB batch (B, H, W, 3) -> (gray left, gray right, RGB
+    left, RGB right): the contiguous f32 BT.601 eyes (B, H, W') of
+    :func:`rgb_eyes`, and its f32 RGB eyes (B, H, W', 3) where
+    ``want_rgb``, else None. The plain twin of
+    :func:`video3d_tpu_torch.kernels.image.eyes_gray`."""
+    left, right = rgb_eyes(frames, unsqueeze)
+    gl = rgb_to_gray(left).contiguous()
+    gr = rgb_to_gray(right).contiguous()
+    return (gl, gr, left, right) if want_rgb else (gl, gr, None, None)

@@ -1,6 +1,7 @@
 """Stereo depth extraction stage (counterpart of video3d_tpu.stages.depth).
 
-Per batch, on one device: SBS split, 2x Lanczos-4 unsqueeze, BT.601 gray,
+Per batch, on one device: SBS split, 2x Lanczos-4 unsqueeze and BT.601
+gray (one CUDA kernel on a card, :mod:`video3d_tpu_torch.kernels.image`),
 the semi-global matcher (:func:`video3d_tpu_torch.ops.stereo.
 sgbm_disparity` in any of its modes and horizontal routes, whose kernels
 run on a CUDA device), the optional background-extension hole fill, the
@@ -37,14 +38,14 @@ from video3d_tpu_torch.core import (DepthMapWriter, VideoReader,
                                     create_work_directory, depth_cache_dir,
                                     get_video_info, is_depth_cached_range)
 from video3d_tpu_torch.core.trace import span
+from video3d_tpu_torch.kernels import image as image_kernel
 from video3d_tpu_torch.models.crestereo import (BUNDLED_WEIGHTS,
                                                 load_crestereo_guidance)
 from video3d_tpu_torch.models.mono import ssi_align
 from video3d_tpu_torch.ops.boxsum import box_sum_2d
 from video3d_tpu_torch.ops.fill import fill_holes as fill_holes_op
 from video3d_tpu_torch.ops.flow import FlowEMAParams
-from video3d_tpu_torch.ops.image import (resize2d, rgb_to_gray, split_sbs,
-                                         unsqueeze_width)
+from video3d_tpu_torch.ops.image import resize2d
 from video3d_tpu_torch.ops.stereo import (HORIZONTAL_ROUTES, SGBMParams,
                                           acc_dtype_for_params,
                                           sgbm_disparity)
@@ -60,24 +61,11 @@ BACKEND = "torch"
 STEREO_WEIGHT = 0.7
 
 
-def rgb_eyes(frames: torch.Tensor, unsqueeze: bool = True):
-    """uint8 SBS RGB batch (B, H, W, 3) -> f32 RGB eyes (B, H, W', 3):
-    split and optional 2x Lanczos-4 unsqueeze of each channel."""
-    left, right = split_sbs(frames)
-    left = left.to(torch.float32)
-    right = right.to(torch.float32)
-    if unsqueeze:
-        # resample each RGB channel's width: (B, H, W/2, 3) -> (B, H, W, 3)
-        left = unsqueeze_width(left.movedim(-1, 1)).movedim(1, -1)
-        right = unsqueeze_width(right.movedim(-1, 1)).movedim(1, -1)
-    return left, right
-
-
 def gray_pair(frames: torch.Tensor, unsqueeze: bool = True):
     """uint8 SBS RGB batch (B, H, W, 3) -> contiguous f32 gray eyes
-    (B, H, W') each: :func:`rgb_eyes`, then BT.601."""
-    left, right = rgb_eyes(frames, unsqueeze)
-    return rgb_to_gray(left).contiguous(), rgb_to_gray(right).contiguous()
+    (B, H, W') each: the split, optional 2x Lanczos-4 unsqueeze and BT.601
+    of :func:`video3d_tpu_torch.kernels.image.eyes_gray`."""
+    return image_kernel.eyes_gray(frames, unsqueeze)[:2]
 
 
 def confidence_trust_blend(disp: torch.Tensor, margin: torch.Tensor,
@@ -251,10 +239,9 @@ def depth_batch_pipeline(
     """
     with span("stage", frames, frames=frames.shape[0]):
         with span("stage.eyes", frames):
-            left, right = rgb_eyes(frames, unsqueeze)
-        with span("stage.gray", frames):
-            gl = rgb_to_gray(left).contiguous()
-            gr = rgb_to_gray(right).contiguous()
+            # the RGB eyes only for a guide
+            gl, gr, left, right = image_kernel.eyes_gray(
+                frames, unsqueeze, want_rgb=guidance_fn is not None)
         want_margin = guidance_fn is not None and blend == "confidence"
         with span("stage.matcher", frames):
             res = sgbm_disparity(gl, gr, params, apply_speckle=apply_speckle,

@@ -1,4 +1,4 @@
-"""Small-shape checks of kernels B1-B6, B8a-c and P against their plain
+"""Small-shape checks of kernels B1-B6, B8a-c, I1 and P against their plain
 twins.
 
 The shapes stress what the 1080p run at D = 64 does not: widths that are
@@ -37,7 +37,9 @@ path); each way bit-equal to the twin and to a second run, the inverse
 from a W-major volume whose padding rows hold garbage. P runs all six ops
 in one launch and each op alone at ragged shapes (n and the last axis no
 multiple of 8, rows shorter than the select's 4 columns), aligned and
-not, bit-equal to the torch expressions. ``chip_smoke.py``
+not, bit-equal to the torch expressions. I1 runs the stage's half- and
+full-SBS 1080p batches, batch 1 and ragged widths (``I1_CASES``) against
+the dense product within 1e-3. ``chip_smoke.py``
 and ``tests/test_torch_card.py`` both run them on the card; the functions
 raise ``AssertionError`` on a mismatch.
 """
@@ -47,10 +49,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from video3d_tpu_torch.kernels import (costvol, flowmatch, sgm, speckle, warp,
-                                       wmajor)
+from video3d_tpu_torch.kernels import (costvol, flowmatch, image, sgm,
+                                       speckle, warp, wmajor)
 from video3d_tpu_torch.ops import flow
-from video3d_tpu_torch.ops.image import resize2d
+from video3d_tpu_torch.ops.image import eyes_gray_plain, resize2d
 from video3d_tpu_torch.ops.speckle import speckle_filter_device
 from video3d_tpu_torch.ops.stereo import SGBMParams, sgm_aggregate
 from video3d_tpu_torch.tools import probe_i16
@@ -207,6 +209,16 @@ P_CASES = [(3, 5, 7), (1,), (2, 3, 9), (5, 13), (4, 3), (17,), (2, 1000),
            (1, 1, 8), (6, 4), (8, 64, 256)]
 
 
+# I1: (batch, height, SBS width, unsqueeze): the stage's half-SBS and
+# full-SBS 1080p batches, batch 1, an odd width whose eyes' rows are no
+# multiple of 16 bytes and whose output is no multiple of 4 columns (129
+# columns an eye), a narrow eye whose border taps merge, and one pixel
+I1_CASES = [(8, 1080, 1920, True), (8, 1080, 3840, False),
+            (1, 1080, 1920, True), (1, 1080, 3840, False),
+            (3, 37, 258, True), (3, 37, 258, False), (2, 5, 14, True),
+            (2, 3, 6, False), (1, 1, 2, True)]
+
+
 def _at_offset(x: torch.Tensor, offset: int) -> torch.Tensor:
     """A contiguous copy of ``x`` whose data starts ``offset`` elements
     past the start of a fresh allocation (1: not 16-byte aligned)."""
@@ -222,6 +234,34 @@ def gray_pair(b: int, h: int, w: int, shift: int, seed: int, device):
     base = r.uniform(0, 255, (b, h, w + shift)).astype(np.float32)
     return (torch.from_numpy(base[:, :, :w].copy()).to(device),
             torch.from_numpy(base[:, :, shift:shift + w].copy()).to(device))
+
+
+def check_i1(device, b, h, w, unsqueeze, seed=17) -> None:
+    """I1 against its twin (the dense f32 matrix product, TF32 off):
+    gray and RGB within 1e-3 on the 0-255 scale, the RGB eyes with the
+    twin's strides, the same bits on a second run."""
+    r = np.random.default_rng(seed)
+    x = torch.from_numpy(r.integers(0, 256, (b, h, w, 3),
+                                    dtype=np.uint8)).to(device)
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = eyes_gray_plain(x, unsqueeze, want_rgb=True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old
+    for want_rgb in (False, True):
+        got = image.eyes_gray(x, unsqueeze, want_rgb)
+        again = image.eyes_gray(x, unsqueeze, want_rgb)
+        torch.cuda.synchronize()
+        n = 4 if want_rgb else 2
+        for k in range(n):
+            err = (got[k] - want[k]).abs().max().item()
+            assert got[k].shape == want[k].shape and err <= 1e-3, (
+                f"I1 {b}x{h}x{w} unsqueeze={unsqueeze} output {k}: {err}")
+            assert got[k].stride() == want[k].stride(), (
+                got[k].stride(), want[k].stride())
+            assert torch.equal(got[k], again[k])
+        assert all(t is None for t in got[n:])
 
 
 def check_b1(device, b, h, w, d, min_d, block, seed=7) -> None:

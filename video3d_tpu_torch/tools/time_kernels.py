@@ -1,4 +1,4 @@
-"""Times of kernels B2, B8c, B4, B8a, B8b and P over batch sizes.
+"""Times of kernels B2, B8c, B4, B8a, B8b, I1 and P over batch sizes.
 
 What ``chip_smoke.py`` does not time: B2 (both horizontal sweeps, int16
 and f32 accumulator), B8c (both W-major horizontal sweeps on the
@@ -16,18 +16,23 @@ CUDA events and in device time from ``torch.profiler``, with the bytes a
 second of the round trip's 4 x volume x 2 B, beside a ``clone`` of the
 volume: the card's copy rate on the same bytes); and P, once (the six int16
 probe ops at the probe's shape: six calls of ``probe_op``, and one call
-of ``probe_all`` where the tree has it, event and device time a call).
+of ``probe_all`` where the tree has it, event and device time a call); I1
+(the stage's split, 2x unsqueeze and gray in one launch, gray only and
+with the RGB eyes) beside the plain twin, the dense f32 product the stage
+ran before, and that product alone, in CUDA events and device time a
+frame, with the byte bound.
 ``digest`` prints a SHA-256 of the outputs of B1-B4 (the int16 cost, B2's
 sums at 5 and 8 paths, B3's disparity and margin, B4's map) instead of a
 time, to show that two trees give the same bits. Prints the card's name
 and power limit first. The script uses only entry points that trees
-before the B8a redesign have (and ``probe_all`` where present), so
-``PYTHONPATH=<other tree> python <this file> b8a b8b p digest 2`` runs
-another checkout's kernels in the same call.
+before the B8a redesign have (and ``probe_all`` where present; ``i1``
+needs a tree with I1), so ``PYTHONPATH=<other tree> python <this file> b8a
+b8b p digest 2`` runs another checkout's kernels in the same call.
 
 Usage: ``python -m video3d_tpu_torch.tools.time_kernels [kernel ...]
 [batch ...]`` on a CUDA card; kernels are ``b2``, ``b8c``, ``b4``,
-``b8a``, ``b8b``, ``p`` and ``digest`` (default: all but ``digest``),
+``b8a``, ``b8b``, ``i1``, ``p`` and ``digest`` (default: all but
+``digest``),
 batches default to 1, 2, 4 and 8.
 """
 
@@ -99,7 +104,7 @@ def _dev(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f}"
 
 
-KERNELS = ("b2", "b8c", "b4", "b8a", "b8b", "p", "digest")
+KERNELS = ("b2", "b8c", "b4", "b8a", "b8b", "i1", "p", "digest")
 
 
 def main(argv=None) -> int:
@@ -124,13 +129,48 @@ def main(argv=None) -> int:
     timers = {"b2": b2, "b8a": b8a, "b8c": b8c, "b4": b4, "b8b": b8b,
               "digest": digest}
     for nb in batches or [1, 2, 4, 8]:
-        gl, gr = gray_pair(torch.from_numpy(sbs_batch(nb)).to("cuda"))
+        frames = torch.from_numpy(sbs_batch(nb)).to("cuda")
+        if "i1" in kernels:
+            i1(frames, nb)
+        gl, gr = gray_pair(frames)
+        del frames
         cost = costvol.cost_volume(gl, gr, p, 2.0 * p.prefilter_cap)
         for name in timers:
             if name in kernels:
                 timers[name](cost, p, nb)
         del cost
     return 0
+
+
+def i1(frames, nb: int) -> None:
+    """I1 gray only and with the RGB eyes, the twin (today's chain) and
+    the unsqueeze's two f32 products alone, on a half-SBS batch. Imported
+    here, so that trees without I1 time the other kernels."""
+    from video3d_tpu_torch.kernels import image
+    from video3d_tpu_torch.ops.image import (_resample_matrix_on,
+                                             eyes_gray_plain)
+
+    _, h, w, _ = frames.shape
+    mat = _resample_matrix_on(w // 2, w, "lanczos4", frames.device)
+    eyes = [e.to(torch.float32).movedim(-1, 1)
+            for e in torch.split(frames, w // 2, dim=2)]
+    # the twin makes the RGB eyes first, so it writes them either way
+    calls = [("I1 gray", lambda: image.eyes_gray(frames)),
+             ("I1 with RGB", lambda: image.eyes_gray(frames, want_rgb=True)),
+             ("twin (split, cast, dense product, gray) with RGB",
+              lambda: eyes_gray_plain(frames, want_rgb=True)),
+             ("library: the two f32 products alone",
+              lambda: [torch.matmul(e, mat) for e in eyes])]
+    for name, fn in calls:
+        ms = cuda_ms(fn, 20) / nb
+        dev = device_ms(fn)
+        rgb = "RGB" in name
+        nbytes = h * w * 3 + 2 * h * w * 4 * (4 if rgb else 1)
+        bound = ("" if not name.startswith("I1") else
+                 f"; byte bound {nbytes / HBM_BYTES_S * 1e3:.4f} ms")
+        print(f"{name}, batch {nb}: {ms:.4f} ms/frame, device "
+              f"{_dev(None if dev is None else dev / nb)}{bound}")
+    del eyes
 
 
 def b2(cost, p, nb: int) -> None:
