@@ -22,7 +22,6 @@ import torch
 
 from benchmark.harness import check, driver as drv, trace as tr
 from benchmark.harness.registry import Registry
-from benchmark.reference.depth import Reference
 
 WARMUP_BATCHES = 3
 PROFILE_BATCHES = 24
@@ -42,7 +41,8 @@ def run(reg: Registry, workload: str, seed: int, seconds: float,
         log=print, keep: dict | None = None) -> dict:
     """The result line's fields for one run; ``log`` takes progress
     lines (standard error in a run). ``keep`` (for tools) receives the
-    clip, the sampled batches and the reference's maps of them."""
+    clip, the sampled batches, the reference's maps of them and the record
+    the metrics read."""
     t_start = time.perf_counter() if t_start is None else t_start
     device = torch.device(device)
     cuda = device.type == "cuda"
@@ -56,7 +56,7 @@ def run(reg: Registry, workload: str, seed: int, seconds: float,
         log(f"set-up {time.perf_counter() - t_start:.3f} s: {what}")
 
     mark("start of the cell")
-    stage, ext, opts = drv.build(config, traffic, reg.root, device)
+    stage, ext, opts = drv.build(reg, config, traffic, device)
     batch = traffic["batch"]
     mark("program built, guidance resolved")
     clip = reg.generator(traffic["generator"])(traffic, seed, device)
@@ -134,22 +134,24 @@ def run(reg: Registry, workload: str, seed: int, seconds: float,
         torch.cuda.empty_cache()
 
     h, w_sbs = clip.shape[1], clip.shape[2]
+    eye_width = w_sbs if traffic["format"] == "half_sbs" else w_sbs // 2
+    guide = config["guide"]
     rec = SimpleNamespace(
-        seconds=float(seconds), batch=batch, height=h,
-        eye_width=w_sbs if traffic["format"] == "half_sbs" else w_sbs // 2,
-        keyframes=(-(-batch // ext_every) if config["guide"] is not None
-                   else 0),
+        seconds=float(seconds), batch=batch, height=h, eye_width=eye_width,
+        keyframes=-(-batch // ext_every) if guide is not None else 0,
+        guide_work=(reg.guide(guide["kind"]).work(guide, h, eye_width)
+                    if guide is not None else None),
         config=config, traffic=traffic, peak_alloc_bytes=peak,
         trace=traced, **window, **timed)
 
     t_ref = time.perf_counter()
-    reference = Reference(config, traffic, reg.root, device)
+    reference = check.reference(reg, config, traffic, device)
     refs = []
     got = check.compare(sample.items, clip, reference,
                         config["sgbm"]["num_disparities"], refs)
     if keep is not None:
         keep.update(clip=clip, sample=sample.items, refs=refs,
-                    config=config, traffic=traffic)
+                    config=config, traffic=traffic, run=rec)
     correct, table = check.verdict(got, limits)
     log(f"reference: {len(sample.items)} batches compared in "
         f"{time.perf_counter() - t_ref:.1f} s")

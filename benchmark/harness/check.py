@@ -23,6 +23,9 @@ import random
 
 import torch
 
+from benchmark.harness import weights
+from benchmark.reference.depth import Reference
+
 SAMPLE_BATCHES = 2
 OFF_PX = 1.0
 
@@ -76,14 +79,25 @@ def compare(sample: list, clip, reference, num_disparities: int,
         mean_px=sum(d["mean_px"] for d in diffs) / len(diffs))
 
 
-def control(keep: dict, root, device) -> dict:
+def reference(reg, config: dict, traffic: dict, device,
+              control: bool = False):
+    """The plain reference of a configuration and traffic mix: with a
+    guide, its kind's forward (``reg.guide``) from the weights the program
+    loaded; one precision lower with ``control``."""
+    net = None
+    if config["guide"] is not None:
+        kind = reg.guide(config["guide"]["kind"])
+        net = kind.reference(weights.path(kind, config, reg.root, device),
+                             config["guide"], device, control)
+    return Reference(config, traffic, net, device, control)
+
+
+def control(keep: dict, reg, device) -> dict:
     """The control's numbers on a run's sampled batches: the reference put
     in the program's place one precision lower (``control=True``), on the
     same frames, against the reference maps the run kept
     (``cell.run(..., keep=...)``)."""
-    from benchmark.reference.depth import Reference
-
-    ctl = Reference(keep["config"], keep["traffic"], root, device,
+    ctl = reference(reg, keep["config"], keep["traffic"], device,
                     control=True)
     nd = keep["config"]["sgbm"]["num_disparities"]
     parts = [numbers(ctl.maps(keep["clip"][s:s + m.shape[0]]), ref, nd)

@@ -2,8 +2,9 @@
 
 The program is ``video3d_tpu_torch``'s depth stage. :func:`build` makes a
 ``StereoDepthExtractor`` from the configuration (its work directory under
-``TMPDIR``), lets it resolve its guidance model (``load_model``), and takes
-the options its ``_run_batches`` would pass to ``depth_batch_pipeline``.
+``TMPDIR``), lets it resolve its guidance model (``load_model``) from the
+weights the guide's kind gives, has the kind check it, and takes the
+options its ``_run_batches`` would pass to ``depth_batch_pipeline``.
 :class:`Driver` repeats what ``_run_batches`` does for a batch, minus the
 PNG writer: a host batch copied into pinned memory and uploaded without
 waiting, the stage called, the readback started with ``host_copy_async``,
@@ -13,43 +14,40 @@ then the previous batch drained, so one batch is in flight.
 from __future__ import annotations
 
 import contextlib
-import tempfile
 import time
-from pathlib import Path
 
 import numpy as np
 import torch
 
+from benchmark.harness import weights
 
-def build(config: dict, traffic: dict, root: Path, device):
-    """(stage module, extractor, options for ``depth_batch_pipeline``)."""
+
+def build(reg, config: dict, traffic: dict, device):
+    """(stage module, extractor, options for ``depth_batch_pipeline``).
+    With a guide, the program loads the weights its kind resolves
+    (:mod:`benchmark.harness.weights`), and the kind checks what loaded."""
     from video3d_tpu_torch.ops.stereo import SGBMParams
     from video3d_tpu_torch.stages import depth as stage
 
     ext_cfg = dict(config["extractor"])
     if ext_cfg.pop("temporal_smooth") != "none":
         raise ValueError("the harness drives no temporal smoother")
-    work = Path(tempfile.gettempdir()) / "video3d_bench_work"
     kwargs = dict(ext_cfg, **traffic["options"])
-    if config["weights"] is not None:
-        kwargs["model_checkpoint"] = str(root / config["weights"])
+    guide = config["guide"]
+    kind = reg.guide(guide["kind"]) if guide is not None else None
+    if kind is not None:
+        kwargs["model_checkpoint"] = str(weights.path(kind, config, reg.root,
+                                                      device))
     ext = stage.StereoDepthExtractor(
-        work_dir=str(work), batch_size=traffic["batch"],
+        work_dir=str(weights.work_dir()), batch_size=traffic["batch"],
         unsqueeze_anamorphic=traffic["format"] == "half_sbs",
         params=SGBMParams(**config["sgbm"]), device=device, **kwargs)
     ext.load_model()
-    if config["guide"] is not None:
-        fn = ext._guidance_fn
-        if fn is None:
+    if kind is not None:
+        if ext._guidance_fn is None:
             raise RuntimeError("the guidance model did not load; the run "
                                "would measure stereo-only")
-        want = {k: v for k, v in config["guide"].items()
-                if k not in ("conv_dtype", "infer_scale_hd")}
-        have = {k: getattr(fn.module.cfg, k) for k in want}
-        if have != want or str(fn.module.cfg.dtype) != (
-                "torch." + config["guide"]["conv_dtype"]):
-            raise RuntimeError(f"the program's guide is not the "
-                               f"configuration's: {fn.module.cfg}")
+        kind.check(ext._guidance_fn, guide)
     opts = dict(params=ext.params, unsqueeze=ext.unsqueeze_anamorphic,
                 normalize=ext.normalize, apply_speckle=ext.apply_speckle,
                 guidance_fn=ext._guidance_fn,

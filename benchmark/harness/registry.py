@@ -11,7 +11,9 @@ Everything else is a file found by its name:
 - a metric: ``benchmark/metrics/<metric>.py`` (a ``read`` function); a
   quantity split by the end-to-end metric its cells report
   (``<metric>.<variant>``) has a file of its own that may take its
-  reader from the base metric's file (:func:`metric_reader`).
+  reader from the base metric's file (:func:`metric_reader`);
+- a guide network: ``benchmark/guides/<kind>.py``, the ``kind`` that a
+  configuration's ``guide`` names (see :meth:`Registry.guide`).
 
 Adding any of them is adding files and entries; nothing here changes.
 """
@@ -32,8 +34,8 @@ def _json(path: Path) -> dict:
     return json.loads(path.read_text())
 
 
-def _module(path: Path, attr: str):
-    """``attr`` of the Python file at ``path``, loaded by path (a metric's
+def _load(path: Path):
+    """The Python file at ``path`` as a module, loaded by path (a metric's
     name may hold dots)."""
     if not path.is_file():
         raise FileNotFoundError(f"missing benchmark file: {path}")
@@ -42,7 +44,12 @@ def _module(path: Path, attr: str):
         path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return getattr(mod, attr)
+    return mod
+
+
+def _module(path: Path, attr: str):
+    """``attr`` of the Python file at ``path``."""
+    return getattr(_load(path), attr)
 
 
 def metric_reader(path):
@@ -73,6 +80,28 @@ class Registry:
 
     def generator(self, name: str):
         return _module(self.dir / "traffic" / f"{name}.py", "render")
+
+    def guide(self, kind: str):
+        """The guide kind's file, ``benchmark/guides/<kind>.py``, as a
+        module. It gives, for a configuration's ``guide`` dict:
+
+        - ``weights(guide, seed, out, device)``: writes weights drawn from
+          a ``torch.Generator`` seeded with ``seed`` into the directory
+          ``out``, in the layout the program's loader reads, and returns
+          the path to give the program (:mod:`benchmark.harness.weights`);
+        - ``check(fn, guide)``: raises unless the program's resolved
+          guidance fn has the guide's widths and precision;
+        - ``reference(path, guide, device, control)``: the plain forward
+          from the weights at ``path``, one precision lower with
+          ``control``: an object with ``stereo`` (disparity out, or a
+          monocular guide's relative depth) and ``guidance(left, right,
+          image_mode)``, RGB eyes (B, H, W, 3) in [0, 255] -> (B, H, W)
+          float64;
+        - ``work(guide, h, w)``: ``{unit: operations}`` of one forward on
+          eyes of (h, w), at the kind's own inference shape; ``unit`` is a
+          key of :data:`benchmark.harness.work.PEAK_OPS_S`.
+        """
+        return _load(self.dir / "guides" / f"{kind}.py")
 
     def limits(self, cell: str) -> dict:
         return _json(self.dir / "workloads" / f"{cell}.json")["limits"]

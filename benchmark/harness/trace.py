@@ -3,8 +3,7 @@ reduced to the device's busy time, its copies, its operations by time, and
 its idle gaps labelled by what the harness was doing on the host.
 
 Busy time is the length of the union of the device's kernel, copy and set
-intervals (the interval-union arithmetic of the port's
-``tools/profile_stage.py``, copied); the window is the span from the first
+intervals (:func:`union_length`); the window is the span from the first
 device operation's start to the last one's end. An idle gap is a stretch of
 that window with no device operation; it is labelled by the innermost
 harness span (``record_function``) open on the host at its midpoint.

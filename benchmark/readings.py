@@ -53,7 +53,7 @@ def main(argv=None) -> int:
                    metrics={k: v["value"] for k, v in out["metrics"].items()})
         if args.control:
             t1 = time.perf_counter()
-            row["control"] = check.control(keep, ROOT, "cuda")
+            row["control"] = check.control(keep, reg, "cuda")
             row["control_s"] = time.perf_counter() - t1
         row["seconds_total"] = time.perf_counter() - t0
         line = json.dumps(row)

@@ -5,12 +5,14 @@ Per frame: split the eyes, unsqueeze a half-SBS eye 2x (Lanczos-4), BT.601
 gray, the matcher (:mod:`benchmark.reference.matcher`), with guidance the
 background-extension hole fill, the keyframe guide (every
 ``guidance_every``-th frame of the batch serves itself and the frames after
-it) and the confidence-trust blend, then fixed-range or per-frame uint16.
+it), a monocular guide's output landed in disparity units
+(:func:`land_mono`), and the blend, then fixed-range or per-frame uint16.
 Floating steps run in float64 except the guide's network, which runs in
-the precision the configuration states (bfloat16 convolutions, see
-:mod:`benchmark.reference.crestereo`). ``control=True`` computes every
-configured float step of the image ops and the guide one precision lower:
-TF32 resampling, bfloat16 gray, fp8 guide convolutions.
+the precision the configuration states; the guide's kind builds it
+(``benchmark/guides/<kind>.py reference``). ``control=True`` computes every
+configured float step of the image ops one precision lower (TF32
+resampling, bfloat16 gray), and the caller passes the guide's network
+built one precision lower too.
 """
 
 from __future__ import annotations
@@ -20,7 +22,6 @@ import contextlib
 import torch
 
 from benchmark.reference import image, matcher
-from benchmark.reference.crestereo import Net, load
 from benchmark.reference.matcher import box_clipped
 
 CHUNK = 4  # frames through the matcher at once: its int32 volumes fit
@@ -82,6 +83,55 @@ def trust_blend(disp, conf, guide, min_disparity: float,
     return conf * stereo + (1.0 - conf) * guide
 
 
+def ssi_fit(pred, target, weight):
+    """Per-image weighted least-squares scale and shift of ``pred`` onto
+    ``target`` (B, H, W); (B, 1, 1) each. A degenerate fit (|det| <= 1e-6)
+    gives s = 1."""
+    dims = (-2, -1)
+    n = weight.sum(dim=dims).clamp(min=1.0)
+    sp = (pred * weight).sum(dim=dims)
+    st = (target * weight).sum(dim=dims)
+    spp = (pred * pred * weight).sum(dim=dims)
+    spt = (pred * target * weight).sum(dim=dims)
+    det = n * spp - sp * sp
+    s = torch.where(det.abs() > 1e-6, (n * spt - sp * st) / det, 1.0)
+    t = (st - s * sp) / n
+    return s[:, None, None], t[:, None, None]
+
+
+def land_mono(mono, disp, conf, num_disparities: int,
+              min_disparity: float, confidence: bool):
+    """A monocular guide's relative depth (B, H, W) in disparity units:
+    each image min-max normalised to [0, D]; with the confidence blend,
+    where the scale-and-shift fit onto the confident stereo (weights: the
+    confidence where disp > min_disparity - 0.5; target: disp clamped at
+    0) has s > 0, the fitted guide clamped to [0, D] instead."""
+    d = float(num_disparities)
+    lo = mono.amin(dim=(-2, -1), keepdim=True)
+    hi = mono.amax(dim=(-2, -1), keepdim=True)
+    guide = (mono - lo) / (hi - lo).clamp(min=1e-6) * d
+    if confidence:
+        w = torch.where(disp > min_disparity - 0.5, conf, 0.0)
+        s, t = ssi_fit(mono, disp.clamp(min=0.0), w)
+        guide = torch.where(s > 0.0, (mono * s + t).clamp(0.0, d), guide)
+    return guide
+
+
+def blend(disp, conf, guide, stereo: bool, ext: dict, sgbm: dict):
+    """The stereo disparity (after any fill) mixed with the guide's output
+    for the same frames: ``conf`` is the matcher's confidence (the
+    confidence blend), ``stereo`` whether the guide gives disparity."""
+    confidence = ext["blend"] == "confidence"
+    if not stereo:
+        guide = land_mono(guide, disp, conf, sgbm["num_disparities"],
+                          float(sgbm["min_disparity"]), confidence)
+    if confidence:
+        return trust_blend(disp, conf, guide, float(sgbm["min_disparity"]),
+                           ext["trust_scale"])
+    sw = ext["stereo_weight"]
+    return sw * disp + (1.0 - sw) * guide
+
+
 def to_uint16(disp: torch.Tensor, num_disparities: int,
               normalize: str) -> torch.Tensor:
     """Clamp at 0 and scale (0..D, or the frame's min..max) to 0..65535,
@@ -111,9 +161,10 @@ def exact_float32():
 
 class Reference:
     """The reference for one configuration and traffic mix on ``device``;
-    ``root`` is the checkout the weights path is relative to."""
+    ``net`` is the guide's plain forward (an object with ``stereo`` and
+    ``guidance(left, right, image_mode)``), or None without a guide."""
 
-    def __init__(self, config: dict, traffic: dict, root, device,
+    def __init__(self, config: dict, traffic: dict, net, device,
                  control: bool = False):
         self.ext = dict(config["extractor"], **traffic["options"])
         self.sgbm = config["sgbm"]
@@ -121,10 +172,10 @@ class Reference:
         self.every = int(self.ext["guidance_every"])
         self.device = torch.device(device)
         self.image_mode = "low" if control else "f64"
-        self.net = None
-        if config["guide"] is not None:
-            self.net = Net(load(root / config["weights"]), config["guide"],
-                           self.device, "fp8" if control else "bf16")
+        if (net is None) != (config["guide"] is None):
+            raise ValueError("a guide's reference network is given exactly "
+                             "where the configuration has a guide")
+        self.net = net
 
     def maps(self, frames) -> torch.Tensor:
         """uint8 SBS batch (B, H, W, 3), numpy or tensor -> int32 maps
@@ -152,18 +203,12 @@ class Reference:
         gr = image.gray(right, self.image_mode)
         del left, right
         p = self.sgbm
-        blend = guide is not None and self.ext["blend"] == "confidence"
-        res = matcher.disparity(gl, gr, p, want_confidence=blend,
+        margin = guide is not None and self.ext["blend"] == "confidence"
+        res = matcher.disparity(gl, gr, p, want_confidence=margin,
                                 apply_speckle=self.ext["apply_speckle"])
-        disp, conf = res if blend else (res, None)
+        disp, conf = res if margin else (res, None)
         if self.ext["fill_holes"]:
             disp = fill_holes(disp, float(p["min_disparity"] - 1))
         if guide is not None:
-            if blend:
-                disp = trust_blend(disp, conf, guide,
-                                   float(p["min_disparity"]),
-                                   self.ext["trust_scale"])
-            else:
-                sw = self.ext["stereo_weight"]
-                disp = sw * disp + (1.0 - sw) * guide
+            disp = blend(disp, conf, guide, self.net.stereo, self.ext, p)
         return to_uint16(disp, p["num_disparities"], self.ext["normalize"])

@@ -34,7 +34,7 @@ def make_tiny(dst: Path) -> Path:
     from benchmark.harness.registry import BENCH_DIR
 
     bench = dst / "benchmark"
-    for sub in ("configs", "traffic", "metrics", "workloads"):
+    for sub in ("configs", "traffic", "metrics", "workloads", "guides"):
         shutil.copytree(BENCH_DIR / sub, bench / sub)
     (dst / "video3d_tpu_torch").symlink_to(ROOT / "video3d_tpu_torch")
     mix = json.loads((bench / "traffic" / "hsbs.json").read_text())
@@ -58,6 +58,12 @@ def make_tiny(dst: Path) -> Path:
 @pytest.fixture(scope="session")
 def tiny_root(tmp_path_factory) -> Path:
     return make_tiny(tmp_path_factory.mktemp("tiny_checkout"))
+
+
+@pytest.fixture
+def own_tiny_root(tmp_path) -> Path:
+    """A tiny checkout of the test's own, to add files to."""
+    return make_tiny(tmp_path / "checkout")
 
 
 @pytest.fixture(scope="session")

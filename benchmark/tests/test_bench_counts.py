@@ -32,30 +32,39 @@ def test_matcher_bytes_hand_worked():
         8 * (1_368_576_000 + 8_294_400) / 3.35e12 * 1e3)
 
 
+def _crestereo_lite():
+    reg = Registry()
+    return reg.guide("crestereo_lite"), reg.config("crestereo_hybrid")["guide"]
+
+
 def test_conv_flops_equal_the_ports():
     from video3d_tpu_torch.models.crestereo import CREStereoConfig, conv_flops
 
-    guide = Registry().config("crestereo_hybrid")["guide"]
-    assert work.conv_flops(guide, 540, 960) == conv_flops(CREStereoConfig(),
+    kind, guide = _crestereo_lite()
+    assert kind.conv_flops(guide, 540, 960) == conv_flops(CREStereoConfig(),
                                                           540, 960)
-    assert round(work.conv_flops(guide, 540, 960) / 1e9, 1) == 164.8
+    assert round(kind.conv_flops(guide, 540, 960) / 1e9, 1) == 164.8
     tiny = CREStereoConfig.tiny()
     as_dict = dataclasses.asdict(tiny)
     for h, w in ((37, 101), (64, 128), (541, 963)):
-        assert work.conv_flops(as_dict, h, w) == conv_flops(tiny, h, w)
+        assert kind.conv_flops(as_dict, h, w) == conv_flops(tiny, h, w)
 
 
 def test_step_arithmetic_hand_worked():
-    guide = Registry().config("crestereo_hybrid")["guide"]
-    assert work.keyframe_shape(1080, 1920, 2) == (540, 960)
-    assert work.keyframe_shape(540, 960, 2) == (540, 960)
+    kind, guide = _crestereo_lite()
+    assert kind.keyframe_shape(1080, 1920, 2) == (540, 960)
+    assert kind.keyframe_shape(540, 960, 2) == (540, 960)
     # 16 shifts of a 64-wide dot product at 135 x 240
-    assert work.corr_flops(guide, 540, 960) == 2 * 64 * 135 * 240 * 16
+    assert kind.corr_flops(guide, 540, 960) == 2 * 64 * 135 * 240 * 16
+    assert kind.work(guide, 1080, 1920) == {
+        "bf16": kind.conv_flops(guide, 540, 960),
+        "f32": kind.corr_flops(guide, 540, 960)}
     vol = 8 * 1080 * 1920 * 64
     ops = (20 + 18 + 35) * vol + 19 * 8 * 1080 * 1920
     stereo = work.step_least_ms(8, 1080, 1920, 64, 0, None)
     assert stereo == pytest.approx(ops / 67e12 * 1e3)
-    k4 = work.step_least_ms(8, 1080, 1920, 64, 2, guide)
+    k4 = work.step_least_ms(8, 1080, 1920, 64, 2,
+                            kind.work(guide, 1080, 1920))
     assert k4 - stereo == pytest.approx(
-        2 * (work.conv_flops(guide, 540, 960) / 989e12
-             + work.corr_flops(guide, 540, 960) / 67e12) * 1e3)
+        2 * (kind.conv_flops(guide, 540, 960) / 989e12
+             + kind.corr_flops(guide, 540, 960) / 67e12) * 1e3)

@@ -7,7 +7,7 @@ import pytest
 import torch
 
 from benchmark.harness import check, driver
-from benchmark.reference.depth import Reference, fill_holes, to_uint16
+from benchmark.reference.depth import fill_holes, to_uint16
 from benchmark.reference.matcher import box_clipped
 
 CONFIGS = ["crestereo_hybrid", "stereo_sgbm"]
@@ -16,7 +16,7 @@ CONFIGS = ["crestereo_hybrid", "stereo_sgbm"]
 def _program_and_frames(reg, config_name):
     config = reg.config(config_name)
     traffic = reg.traffic("tiny")
-    stage, _, opts = driver.build(config, traffic, reg.root, "cpu")
+    stage, _, opts = driver.build(reg, config, traffic, "cpu")
     frames = reg.generator(traffic["generator"])(traffic, 2**35 + 1,
                                                  "cpu")["frames"]
     return config, traffic, stage.depth_batch_pipeline(frames, **opts), frames
@@ -26,7 +26,7 @@ def _program_and_frames(reg, config_name):
 def test_reference_agrees_with_the_port_on_cpu(tiny_reg, config_name):
     config, traffic, maps, frames = _program_and_frames(tiny_reg,
                                                         config_name)
-    ref = Reference(config, traffic, tiny_reg.root, "cpu").maps(frames)
+    ref = check.reference(tiny_reg, config, traffic, "cpu").maps(frames)
     got = check.numbers(maps, ref, config["sgbm"]["num_disparities"])
     # float64 reference steps against the port's float32 ones: a few
     # sub-pixel rounding flips, no disparity off by a pixel or more
@@ -35,8 +35,8 @@ def test_reference_agrees_with_the_port_on_cpu(tiny_reg, config_name):
     # the maps are not trivial: most pixels hold a match or a fill
     assert float((ref > 0).double().mean()) > 0.5
 
-    ctl = Reference(config, traffic, tiny_reg.root, "cpu",
-                    control=True).maps(frames)
+    ctl = check.reference(tiny_reg, config, traffic, "cpu",
+                          control=True).maps(frames)
     low = check.numbers(ctl, ref, config["sgbm"]["num_disparities"])
     assert low["mean_px"] > 10 * max(got["mean_px"], 1e-4)
 

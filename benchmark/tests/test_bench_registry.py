@@ -84,6 +84,7 @@ def test_config_is_what_the_program_runs(name):
     if config["guide"] is not None:
         cfg = dataclasses.asdict(CREStereoConfig())
         cfg.pop("dtype")
+        assert config["guide"]["kind"] == "crestereo_lite"
         assert {k: config["guide"][k] for k in cfg} == cfg
         assert (ROOT / config["weights"]).is_file()
 
@@ -99,7 +100,7 @@ def test_cell_added_as_new_files(tmp_path):
     new files (and entries in BENCHMARK.json) load by name; no existing
     file of the benchmark changes."""
     bench = tmp_path / "benchmark"
-    for sub in ("configs", "traffic", "metrics", "workloads"):
+    for sub in ("configs", "traffic", "metrics", "workloads", "guides"):
         shutil.copytree(BENCH_DIR / sub, bench / sub)
     before = _digest(bench)
     cfg = json.loads((bench / "configs" / "stereo_sgbm.json").read_text())
