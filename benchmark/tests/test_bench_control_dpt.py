@@ -1,0 +1,47 @@
+"""The cell ``dpt_hybrid_k1_hsbs`` on the card at its own size: the program
+passes its limits, where the control (the reference one precision lower:
+fp8 e4m3 ViT and neck products, bfloat16 decoder convolutions, TF32
+resampling, bfloat16 gray) and the program with its guide's output
+replaced by a constant map each fail them (marked ``cuda``)."""
+
+from __future__ import annotations
+
+import pytest
+import torch
+
+from benchmark.harness import cell, check
+from benchmark.harness.registry import Registry
+
+CELL = "dpt_hybrid_k1_hsbs"
+SEED = 2**33 + 101
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the port's kernels have no CPU mode")
+
+
+@pytest.mark.cuda
+def test_control_fails_the_dpt_cell():
+    _card()
+    reg = Registry()
+    keep = {}
+    out = cell.run(reg, CELL, SEED, 2.0, False, "cuda", log=lambda m: None,
+                   keep=keep)
+    assert out["correct"], out["checked"]
+    low = check.control(keep, reg, "cuda")
+    assert not check.verdict(low, reg.limits(CELL))[0], low
+
+
+@pytest.mark.cuda
+def test_a_constant_guide_fails_the_dpt_cell(monkeypatch):
+    _card()
+    from video3d_tpu_torch.models import dpt
+
+    def constant(self, pixels):
+        return torch.ones(pixels.shape[:3], device=pixels.device)
+
+    monkeypatch.setattr(dpt.DPTDepthModel, "forward", constant)
+    out = cell.run(Registry(), CELL, SEED, 2.0, False, "cuda",
+                   log=lambda m: None)
+    assert not out["correct"], out["checked"]

@@ -63,8 +63,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It
    one batch's maps against the plain path); the same stage with the
    flow-guided temporal smoother over a panning clip (B1-B6, the
    pass-through of frame 0, the flow of the pan, batch 0 against the
-   twins; B5's and B6's launches per smoothed frame); the DPT hybrid (DPT-large at full width and depth with random
-   bf16 weights from seed 0, keyframes every 4th frame, hole fill, SSI
+   twins; B5's and B6's launches per smoothed frame); the DPT hybrid
+   (DPT-large at full width and depth, loaded as ``--model <dir>`` loads
+   it, from the HF checkpoint directory the benchmark's
+   ``dpt_large_hybrid`` writes from its seed, bf16, checked by its guide
+   kind; keyframes every 4th frame, hole fill, SSI
    alignment, confidence-trust blend; 24 B7 launches per batch, the fill,
    finite values, the median, batch 0 against the all-twin path); MODE_HH
    (``params=SGBMParams(num_paths=8)``) over two batches of 8 (median,
@@ -275,6 +278,21 @@ def bound(nbytes: float, ops: float = 0.0, unit: str = "f32"):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def dpt_checkpoint(device):
+    """(directory, guide, kind) of the benchmark's ``dpt_large_hybrid``
+    configuration: its HF checkpoint directory, written from its seed under
+    ``TMPDIR`` on first use (``benchmark/harness/weights.py``), its guide
+    widths and its guide kind, whose ``check`` the loaded guide must pass."""
+    from benchmark.harness import weights
+    from benchmark.harness.registry import Registry
+
+    reg = Registry()
+    config = reg.config("dpt_large_hybrid")
+    kind = reg.guide(config["guide"]["kind"])
+    return (weights.path(kind, config, reg.root, device), config["guide"],
+            kind)
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -329,7 +347,6 @@ def main() -> int:
     from video3d_tpu_torch.models.crestereo import (BUNDLED_WEIGHTS,
                                                     conv_flops,
                                                     load_crestereo_guidance)
-    from video3d_tpu_torch.models.dpt import random_dpt_guidance
     from video3d_tpu_torch.ops import guided
     from video3d_tpu_torch.ops.attention import attention_plain
     from video3d_tpu_torch.ops.fill import fill_holes
@@ -1287,18 +1304,27 @@ def main() -> int:
 
         # -- 4c. the DPT hybrid path -----------------------------------------
         phase("4c. the hybrid path")
-        # DPT-large at full width and depth, random bf16 weights from seed 0
-        # (no checkpoint ships with the repository)
+        # DPT-large at full width and depth through the extractor's own
+        # load path (no checkpoint ships with the repository): the HF
+        # checkpoint directory the benchmark's configuration writes from
+        # its seed, as the cell dpt_hybrid_k1_hsbs loads it
         t0 = time.perf_counter()
-        gfn = random_dpt_guidance(seed=0, device=dev)
+        dpt_dir, dpt_guide, dpt_kind = dpt_checkpoint(dev)
+        t_write = time.perf_counter() - t0
+        hext = StereoDepthExtractor(work_dir=str(work), guidance="dpt",
+                                    model_checkpoint=str(dpt_dir),
+                                    batch_size=8, device=dev)
+        hext.load_model()
+        gfn = hext._guidance_fn
+        check(gfn is not None, "the DPT checkpoint did not load")
+        dpt_kind.check(gfn, dpt_guide)
         torch.cuda.synchronize()
         n_par = sum(t.numel() for t in gfn.module.parameters())
         print(f"DPT-large: {n_par} parameters, "
-              f"{next(gfn.module.parameters()).dtype}, random from seed 0 in "
-              f"{time.perf_counter() - t0:.1f} s")
-        hext = StereoDepthExtractor(work_dir=str(work), guidance="dpt",
-                                    batch_size=8, device=dev)
-        hext._guidance_fn, hext._guidance_loaded = gfn, True
+              f"{next(gfn.module.parameters()).dtype}, seeded checkpoint "
+              f"directory ready in {t_write:.1f} s, loaded through "
+              f"load_model() and checked in "
+              f"{time.perf_counter() - t0 - t_write:.1f} s")
         hbatches = [(sbs_frames(8, SEED + 20 + i), 8) for i in range(2)]
         hcache = work / "depth_hybrid"
         counts(reset=True)

@@ -139,6 +139,43 @@ def test_guide_spans_at_hd_resize_in_and_out(tiny_guide):
     assert trace.summary()["guide.resize_out"]["count"] == 2
 
 
+def test_dpt_spans_and_counts():
+    """DPT's guidance fn: host-only resizes around the network's device
+    spans (none on the CPU), the backbone with its tokens, one attention
+    span a block inside it, then the neck and the decoder; nothing
+    recorded outside a profiler."""
+    from video3d_tpu_torch.models.dpt import (DPTConfig, DPTDepthModel,
+                                              make_guidance_fn)
+
+    cfg = DPTConfig.tiny()
+    torch.manual_seed(0)
+    fn = make_guidance_fn(DPTDepthModel(cfg), infer_size=64)
+    left = torch.from_numpy(np.random.default_rng(2).uniform(
+        0, 255, (3, 40, 48, 3)).astype(np.float32))
+    fn(left)
+    assert trace.records() == []
+    with profile(activities=[ProfilerActivity.CPU]):
+        with trace.span("guide.forward", keyframes=3):
+            out = fn(left)
+    assert out.shape == (3, 40, 48)
+    recs = trace.records()
+    assert _children(recs, 0) == ["guide.resize_in", "guide.backbone",
+                                  "guide.neck", "guide.decoder",
+                                  "guide.resize_out"]
+    idx = {r["name"]: i for i, r in enumerate(recs)}
+    assert _children(recs, idx["guide.backbone"]) == (
+        ["guide.attention"] * cfg.num_hidden_layers)
+    tokens = 3 * ((64 // cfg.patch_size) ** 2 + 1)
+    assert recs[idx["guide.backbone"]]["counts"] == {"tokens": tokens}
+    table = trace.summary()
+    assert table["guide.attention"]["count"] == cfg.num_hidden_layers
+    assert table["guide.backbone"]["counts"] == {"tokens": tokens}
+    assert all(r["device_ms"] is None for r in recs)
+    trace.reset()
+    fn(left)
+    assert trace.records() == []
+
+
 def test_spans_share_the_profilers_host_clock():
     """Each span's host interval holds the profiler's CPU events opened
     inside it, and none of those opened outside it, with a few

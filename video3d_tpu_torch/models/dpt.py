@@ -29,6 +29,13 @@ Weights: :func:`jax_params_to_state_dict` carries the JAX package's flax
 params across, :func:`hf_state_dict_to_port` maps an HF state dict by name;
 :func:`random_dpt_guidance` makes random weights from a seed (no
 checkpoint ships with the repository).
+
+Spans (:mod:`video3d_tpu_torch.core.trace`): ``guide.backbone`` (patch
+embedding, position embeddings and the blocks; counts ``tokens``),
+``guide.attention`` (each B7 call), ``guide.neck`` (readout, reassemble
+and the neck's convs) and ``guide.decoder`` (the fusion stages and the
+head) time the device; the guidance fn's ``guide.resize_in`` and
+``guide.resize_out`` are host-only.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from video3d_tpu_torch.core.trace import span
 from video3d_tpu_torch.kernels import attention as attention_kernels
 from video3d_tpu_torch.models.guidance import loader_device as _loader_device
 
@@ -227,11 +235,13 @@ class ViTSelfAttention(nn.Module):
             return t.reshape(b, s, self.num_heads,
                              self.head_dim).transpose(1, 2).contiguous()
 
+        q, k, v = (split(lin(x)) for lin in (self.query, self.key,
+                                             self.value))
         # kernel B7; heads_per_step is a TPU grouping and changes nothing
         # on the GPU, so the JAX default stands
-        out = attention_kernels.attention_multihead(
-            split(self.query(x)), split(self.key(x)), split(self.value(x)),
-            sm_scale=1.0 / float(self.head_dim) ** 0.5)
+        with span("guide.attention", q):
+            out = attention_kernels.attention_multihead(
+                q, k, v, sm_scale=1.0 / float(self.head_dim) ** 0.5)
         return self.output(out.transpose(1, 2).reshape(b, s, h))
 
 
@@ -268,6 +278,13 @@ class ViTBackbone(nn.Module):
             [ViTBlock(cfg) for _ in range(cfg.num_hidden_layers)])
 
     def forward(self, pixels: torch.Tensor):
+        b, hh, ww, _ = pixels.shape
+        p = self.cfg.patch_size
+        with span("guide.backbone", pixels,
+                  tokens=b * ((hh // p) * (ww // p) + 1)):
+            return self._forward(pixels)
+
+    def _forward(self, pixels: torch.Tensor):
         c = self.cfg
         b, hh, ww, _ = pixels.shape
         gh, gw = hh // c.patch_size, ww // c.patch_size
@@ -372,22 +389,26 @@ class DPTDepthModel(nn.Module):
         taps, (gh, gw) = self.backbone(pixels)
         b = pixels.shape[0]
         feats = []
-        for i, t in enumerate(taps):
-            cls_tok, tokens = t[:, :1], t[:, 1:]
-            if self.readout is not None:
-                merged = torch.cat([tokens, cls_tok.expand_as(tokens)], -1)
-                tokens = F.gelu(self.readout[i](merged))
-            fm = tokens.reshape(b, gh, gw, c.hidden_size).permute(0, 3, 1, 2)
-            fm = self.reassemble_resize[i](self.reassemble_proj[i](fm))
-            feats.append(self.neck_conv[i](fm))
-        x = self.fusion[3](feats[3])
-        for j in (2, 1, 0):
-            x = self.fusion[j](x, feats[j])
-        x = self.head_conv1(x)
-        x = _resize_ac_nchw(x, x.shape[-2] * 2, x.shape[-1] * 2)
-        x = F.relu(self.head_conv2(x))
-        x = F.relu(self.head_conv3(x))
-        return x[:, 0]
+        with span("guide.neck", pixels):
+            for i, t in enumerate(taps):
+                cls_tok, tokens = t[:, :1], t[:, 1:]
+                if self.readout is not None:
+                    merged = torch.cat([tokens, cls_tok.expand_as(tokens)],
+                                       -1)
+                    tokens = F.gelu(self.readout[i](merged))
+                fm = tokens.reshape(b, gh, gw,
+                                    c.hidden_size).permute(0, 3, 1, 2)
+                fm = self.reassemble_resize[i](self.reassemble_proj[i](fm))
+                feats.append(self.neck_conv[i](fm))
+        with span("guide.decoder", pixels):
+            x = self.fusion[3](feats[3])
+            for j in (2, 1, 0):
+                x = self.fusion[j](x, feats[j])
+            x = self.head_conv1(x)
+            x = _resize_ac_nchw(x, x.shape[-2] * 2, x.shape[-1] * 2)
+            x = F.relu(self.head_conv2(x))
+            x = F.relu(self.head_conv3(x))
+            return x[:, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -534,13 +555,15 @@ def make_guidance_fn(model: DPTDepthModel, infer_size: int = 384):
 
     def apply_fn(module, left_rgb: torch.Tensor) -> torch.Tensor:
         b, h, w, _ = left_rgb.shape
-        x = left_rgb / 255.0
-        x = (x - DPT_MEAN) / DPT_STD
-        x = resize2d(x.movedim(-1, 1), infer_size, infer_size,
-                     method="bilinear").movedim(1, -1)
+        with span("guide.resize_in"):
+            x = left_rgb / 255.0
+            x = (x - DPT_MEAN) / DPT_STD
+            x = resize2d(x.movedim(-1, 1), infer_size, infer_size,
+                         method="bilinear").movedim(1, -1)
         with torch.no_grad():
             depth = module(x.to(dtype)).float()
-        return resize2d(depth, h, w, method="bilinear")
+        with span("guide.resize_out"):
+            return resize2d(depth, h, w, method="bilinear")
 
     return GuidanceFn(apply_fn, model)
 
@@ -602,8 +625,10 @@ def load_dpt_safetensors(model_dir: str, dtype: torch.dtype = torch.bfloat16,
 
 
 def _guidance_from_hf(sd, cfg, dtype, infer_size, device):
-    model = DPTDepthModel(cfg)
-    model.load_state_dict(hf_state_dict_to_port(sd, cfg))
+    # the skeleton takes the loaded tensors (no random init of the
+    # network's parameters on the host first)
+    model = _skeleton(cfg)
+    model.load_state_dict(hf_state_dict_to_port(sd, cfg), assign=True)
     model = model.to(device=_loader_device(device, "DPT guidance"),
                      dtype=dtype)
     return make_guidance_fn(model, infer_size=infer_size)
