@@ -646,7 +646,8 @@ def main() -> int:
                     cost8, acc_scratch, pp), 5) / batch8,
                 work=rows[f"B3{tag}"]["work"])
         print(f"B3{tag} at batch 8: {sgm.vertical_plan[3]} frames a launch, "
-              f"{sgm.vertical_plan[4]} launches per sweep step")
+              f"{sgm.vertical_plan[4]} launches per sweep step, route "
+              f"{sgm.vertical_route(cost8.dtype, pp)}")
         del acc, acc_scratch
     del cost8
     torch.cuda.empty_cache()
@@ -658,6 +659,8 @@ def main() -> int:
         card_checks.check_b2(dev, *case)
     for case in card_checks.B3_CASES:
         card_checks.check_b3(dev, *case)
+    for case in card_checks.B3_PACKED_CASES:
+        card_checks.check_b3_packed(dev, *case)
     for case in card_checks.B4_CASES:
         card_checks.check_b4(dev, *case)
     for case in card_checks.B8C_CASES:
@@ -676,7 +679,10 @@ def main() -> int:
           f"3, blocks 3-9); B2 at {len(card_checks.B2_CASES)} (widths "
           f"1-1000, int16 and f32 accumulator); B3 holds its gates at "
           f"{len(card_checks.B3_CASES)} (2, 4, 5 and 8 paths, with and "
-          f"without the margin); B4 equals its twin at "
+          f"without the margin) and its packed route equals the int32 "
+          f"route and the twin at {len(card_checks.B3_PACKED_CASES)} "
+          f"(D 16-128, P2 up to 4449, extreme costs, 1080p x 8); B4 "
+          f"equals its twin at "
           f"{len(card_checks.B4_CASES)} (2 to 65 bands, min_region 1-400, "
           f"maps smaller than the window); B8c at "
           f"{len(card_checks.B8C_CASES)} (both entries, D 16-128, rows "
@@ -1152,6 +1158,7 @@ def main() -> int:
     counters = {  # kernel -> (wrapper module, its launch count)
         "B1": (costvol, "launches"), "B2": (sgm, "sweep_launches"),
         "B3": (sgm, "wta_launches"), "B4": (speckle, "launches"),
+        "B3-packed": (sgm, "vertical_packed_launches"),
         "B5": (warp, "launches"), "B6": (flowmatch, "launches"),
         "B7": (attention, "launches"), "B8a": (sgm, "aggregate_launches"),
         "B8b": (wmajor, "transpose_launches"),
@@ -1210,6 +1217,9 @@ def main() -> int:
               f"launches B1..B4 = {launches}")
         for key, k in zip(("B1", "B2", "B3", "B4"), launches):
             rows[key]["launches"] = k
+        check(counts()["B3-packed"] == launches[2],
+              f"B3 left the packed route on the main path: "
+              f"{counts()['B3-packed']} of {launches[2]} calls")
         rows["B1-i16"]["launches"] = launches[0]
         # the stage runs batches of 8: the same launches, at the @8 rows'
         # shape
@@ -1420,6 +1430,8 @@ def main() -> int:
               f"{hh_launches}")
         rows["B2-hh"]["launches"], rows["B3-hh"]["launches"] = hh_launches[1:3]
         rows["B3-hh@8"]["launches"] = hh_launches[2]
+        check(counts()["B3-packed"] == 0,
+              "MODE_HH took B3's packed route: its accumulator is f32")
         check(n_hh == 16, f"wrote {n_hh} frames")
         hh_maps = read_maps(hh_cache, n_hh)
         check_disparity(hh_maps, "MODE_HH path")

@@ -16,7 +16,9 @@ B6's level step and B5's EMA step their lists there (guides 5x7 to
 540x960); the other kernels
 run at the shapes of the ``cuda`` tests beside their CPU tests. Gates are
 the smoke's: B1, B2, B4, B8a-c and P bit-exact; B3 identical validity,
-disparity within 1e-5, margin within rtol 1e-6; B5 1e-5 (its EMA step
+disparity within 1e-5, margin within rtol 1e-6, and on its packed route
+(``card_checks.B3_PACKED_CASES``) bit-exact against its int32 route
+(with the right-image keys) and the twin; B5 1e-5 (its EMA step
 1e-4 on unit-scale depth); B6 2e-4 px, its level step too; B7
 1e-5 in f32 and one bf16 ulp on >= 99.9% of the outputs. The depth
 stage's spans (``core/trace.py``) are held to the device trace's clock on
@@ -57,6 +59,11 @@ def test_b1_matches_twin(dev, case):
 @pytest.mark.parametrize("case", card_checks.B3_CASES, ids=str)
 def test_b3_matches_twin(dev, case):
     card_checks.check_b3(dev, *case)
+
+
+@pytest.mark.parametrize("case", card_checks.B3_PACKED_CASES, ids=str)
+def test_b3_packed_matches_int32_route_and_twin(dev, case):
+    card_checks.check_b3_packed(dev, *case)
 
 
 @pytest.mark.parametrize("case", card_checks.B2_CASES, ids=str)

@@ -51,9 +51,15 @@
 // 5 paths is one launch; 4 and 8 paths are two (top-down writes the
 // accumulator once, bottom-up closes); 2 paths is the WTA alone. Measured
 // on the card, what then bounds the kernel is not the bytes but the
-// integer operations of a row (min, add, shuffle: the card issues 64
-// lanes of them a clock and multiprocessor), so the design spends as few
-// as it can on each pixel:
+// instructions each lane issues a row (the card issues 64 lanes of integer
+// operations a clock and multiprocessor), so the design spends as few as
+// it can on each pixel. Of the int32 route's roughly 450 a lane and row
+// (1080p, D = 64, from the SASS), the recurrence's min, add and shuffle
+// are about a third; addresses, the edge exchange, the WTA's butterflies
+// and selects and the right-image votes the rest. The packed route (below)
+// takes 5 paths at batch 8 from 0.77 to 0.48 ms a frame, 3x its byte
+// bound; there the right-image votes are 0.10 of it (0.38 without the LR
+// check) and a WTA alone on the int32 layout 0.37 (H100 SXM at 700 W):
 //   - A pixel is held by 8, 16 or 32 lanes (lanes_per_pixel), each with
 //     three or four adjacent disparities, so a warp walks 4, 2 or 1
 //     adjacent columns down the rows in sweep order and the shuffles of a
@@ -104,6 +110,62 @@
 //     ties go to the smallest d because the key orders them -- and applies
 //     the LR check to the disparity.
 //
+// B3's packed route (vertical_kernel with PK; kernels/sgm.py
+// vertical_route picks it): B3's int16 5-path closing launch -- int16 cost
+// and accumulator, three directions and the WTA -- on signed 16-bit pairs,
+// each instruction of the recurrence on two disparities. Every value it
+// forms is an exact integer in [0, 2^15), so it gives the int32 route's
+// bits.
+//   - Layout: eight disparities a lane (half the lanes of lanes_per_pixel:
+//     4, 8 or 16 a pixel, a warp on 8, 4 or 2 columns, strips twice as
+//     wide), as four 32-bit words (d0, d0+1) .. (d0+6, d0+7), the lower
+//     disparity in the low half. A lane's run of int16 values is one
+//     16-byte cp.async piece, one 16-byte shared load from the ring or
+//     from the diagonal carries (2 bytes a value), never widened; the edge
+//     exchange sends a pair as one 64-bit word, its row's tag above it.
+//     Eight a lane halves the lanes, and with them the per-lane work of a
+//     row that is not the recurrence (addresses, the min butterflies, the
+//     WTA's bookkeeping): with four a lane the pairs ran only 4% faster.
+//   - The step (sgm_common.cuh sgm_step_pairs): m is __vmins2 over the
+//     lane's pairs, the butterfly over the pixel's lanes, then the min of
+//     the two halves; the neighbour pairs (d-1, d) and (d+1, d+2) are byte
+//     permutes of the lane's pairs and of the one shuffled pair at each end
+//     of the lane; best = min(min(L(d-1), L(d+1), m + P2 - P1) + P1, L) is
+//     __vimin3_s16x2 then __viaddmin_s16x2; Ln = c + best - m is one 32-bit
+//     add of three words. No carry or borrow crosses the halves: per half
+//     c >= 0 and best >= m (every carry, neighbour and m + P2 is at least
+//     m), so c + best - m lies in [0, 2^15), and a 32-bit sum whose low
+//     part lies in [0, 2^16) leaves the high part exact.
+//   - The total: accumulator plus the three paths as 32-bit adds of pairs.
+//     Past D the ring holds garbage, so those halves may carry -- only
+//     upward, into another half past D (d and d + 1 of a word: the high
+//     one is past D whenever the low one is) or out of the word -- and a
+//     lane that reaches past D sets them to TSENT16 = 2^15 - 1. A real
+//     total is below BIG_I16 = 30000.
+//   - The WTA: each key v*256 + d is one byte permute of a total pair and
+//     the pair's disparities as bytes; the minimum, the neighbours and the
+//     second minimum (from keys; TSENT16 or more means none) as before.
+//   - The sentinel SENT16 = 2^14 stands past both ends of the pixel's
+//     disparities and is the cost past D, so a carry past D lies in
+//     [SENT16, SENT16 + P2]. With V = cost_max + P2, the largest real path
+//     value, the route needs: SENT16 > V (past D is never the minimum m);
+//     SENT16 >= V + P2 - P1 (a sentinel neighbour never beats m + P2, as
+//     the int32 route's 2^20 never does); SENT16 + P2 < 2^15 (a carry past
+//     D stays a non-negative int16); 0 <= P1, P2 < 2^15 (m + P2 - P1 and
+//     the sums with P1 stay in int16: min(L(d-1), L(d+1), m + P2 - P1) +
+//     P1 lies in [m, m + P2]). kernels/sgm.py admits the route on the
+//     stronger V + max(P1, P2) < SENT16 and SENT16 + P1 + P2 < 2^15, with
+//     the int16 accumulator (5 V < 30000). At SGBMParams(): V = 3950,
+//     6350 < 16384 and 19384 < 32768; the largest P2 admitted is 4449,
+//     where the accumulator binds.
+//   - The int32 step stays in every other instantiation: MODE_HH and a
+//     large P2 (f32 accumulator: the int16 halves cannot hold the total),
+//     4 paths (two one-direction launches that store the accumulator) and
+//     2 (no sweep), 64 < D <= 96 (eight a lane would hold 128 disparities
+//     for at most 96; the int32 route's three a lane hold 96), and B2 and
+//     B8c, which call sgm_step (B2 runs at 66% of the memory rate that its
+//     two directions must move). B8a's float costs keep f32.
+//
 // An int16 cost computes in int32 (exact; an f32 accumulator holds the
 // integer totals exactly, as the TPU's f32 carries do), so the result does
 // not depend on the order of the directions. An f32 or bf16 cost (B8a)
@@ -136,13 +198,18 @@ constexpr int RINIT = INT_MAX;  // a right-image key nothing voted for
 constexpr unsigned SPIN_LIMIT = 1u << 24;  // polls before a block gives up
 static_assert(PF >= 1 && (PF & (PF - 1)) == 0, "ring slots");
 
+// lanes of a pixel in B3: lanes_per_pixel, or half as many on the packed
+// route, eight disparities (four pairs) a lane
+__host__ __device__ inline int vertical_lanes(int D, bool packed) {
+  return packed ? lanes_per_pixel(D) / 2 : lanes_per_pixel(D);
+}
 // columns of the strip of a vertical block of vw warps
-__host__ __device__ inline int strip_cols(int D, int vw) {
-  return vw * (32 / lanes_per_pixel(D));
+__host__ __device__ inline int strip_cols(int D, int vw, bool packed = false) {
+  return vw * (32 / vertical_lanes(D, packed));
 }
 // ints between the two buffers of a block's right-image keys
-__host__ __device__ inline int keys_pitch(int D, int vw) {
-  return (strip_cols(D, vw) + D - 1 + 3) & ~3;
+__host__ __device__ inline int keys_pitch(int D, int vw, bool packed = false) {
+  return (strip_cols(D, vw, packed) + D - 1 + 3) & ~3;
 }
 
 // a stored value in the compute type V (a bf16 widens exactly to f32: its
@@ -379,7 +446,8 @@ horizontal_kernel(const CT* __restrict__ cost, AT* acc, int rows, int W,
 // A diagonal carry and its row's tag as one word of the edge exchange,
 // written with one store and polled with one load, so the two arrive
 // together: int, a 12-bit tag above a 20-bit value (|value| < 2^19) in 32
-// bits; f32, the tag above the float's bits in 64.
+// bits; f32, the tag above the float's bits in 64; a packed pair (B3's
+// packed route), the tag above the pair's 32 bits in 64.
 template <typename C>
 struct Xch;
 template <>
@@ -402,68 +470,124 @@ struct Xch<float> {
   __device__ static unsigned tag(Word w) { return (unsigned)(w >> 32); }
   __device__ static float value(Word w) { return __uint_as_float((unsigned)w); }
 };
-template <typename CT>
-using XchWord = typename Xch<typename Compute<CT>::type>::Word;
+template <>
+struct Xch<unsigned> {
+  using Word = unsigned long long;
+  static constexpr unsigned TAG = 0xffffffffu;
+  __device__ static Word pack(unsigned tag, unsigned v) {
+    return ((Word)tag << 32) | v;
+  }
+  __device__ static unsigned tag(Word w) { return (unsigned)(w >> 32); }
+  __device__ static unsigned value(Word w) { return (unsigned)w; }
+};
+// a lane's register type: the compute type, or a packed pair
+template <typename CT, bool PK>
+using Reg = std::conditional_t<PK, unsigned, typename Compute<CT>::type>;
+template <typename CT, bool PK = false>
+using XchWord = typename Xch<Reg<CT, PK>>::Word;
 
-// bytes of a vertical block's shared memory: the diagonal carries (4 bytes
-// each) [2][2][CW][DP] when ndir == 3, the right-image keys int
-// [2][keys_pitch] when the launch closes with an LR check, then per column
-// a ring of PF slots, each the cost and the accumulator of one pixel
+// bytes of a vertical block's shared memory: the diagonal carries (4
+// bytes each, packed 2) [2][2][CW][DP] when ndir == 3, the right-image keys
+// int [2][keys_pitch] when the launch closes with an LR check, then per
+// column a ring of PF slots, each the cost and the accumulator of one pixel
 inline size_t vertical_smem(int vw, int DP, int D, int ndir, bool right,
-                            int cost_bytes, int acc_bytes) {
-  const int cw = strip_cols(D, vw);
-  return sizeof(int) * ((ndir == 3 ? 2 * 2 * cw * DP : 0) +
-                        (right ? 2 * keys_pitch(D, vw) : 0)) +
+                            bool packed, int cost_bytes, int acc_bytes) {
+  const int cw = strip_cols(D, vw, packed);
+  return (size_t)(packed ? 2 : 4) * (ndir == 3 ? 2 * 2 * cw * DP : 0) +
+         sizeof(int) * (right ? 2 * keys_pitch(D, vw, packed) : 0) +
          (size_t)cw * PF * DP * (cost_bytes + acc_bytes);
+}
+
+// The f32 part of the left-image WTA of one pixel and row at oo: the
+// sub-pixel step, the uniqueness test and the margin from the first
+// minimum's key v*256 + d, its neighbours' totals and the second minimum
+// outside d +- 1 (SENT where there is none).
+__device__ __forceinline__ void wta_store(float* __restrict__ disp,
+                                          float* __restrict__ margin,
+                                          long long oo, int x, int D, int md,
+                                          int uniq, int key, int m1, int p1,
+                                          int sec) {
+  const int k_d = key & 255;
+  const float fs = (float)(key >> 8);
+  const float fm1 = (float)m1, fp1 = (float)p1;
+  const float denom = (fm1 + fp1) - 2.0f * fs;
+  float sub = denom > 1e-6f ? (fm1 - fp1) / (2.0f * denom + 1e-12f) : 0.0f;
+  sub = fminf(fmaxf(sub, -0.5f), 0.5f);
+  if (k_d == 0 || k_d == D - 1) sub = 0.0f;
+  const float dval = ((float)k_d + sub) + (float)md;
+  bool valid = x >= md + D;
+  const float second = sec == SENT ? 1e9f : (float)sec;
+  if (uniq > 0) valid = valid && (second * 100.0f >= fs * (100.0f + uniq));
+  if (margin) margin[oo] = fmaxf(second - fs, 0.0f) / (fs + 1.0f);
+  disp[oo] = valid ? dval : (float)(md - 1);
 }
 
 // B3: the NDIR (0, 1: dx 0, or 3: dx 0, +1, -1) sweeps of step dy over the
 // frames frame0.. of the int16 cost, added to acc. CLOSE: the total goes to
 // the WTA and is not stored; else it is written back to acc. B8a: the same
 // sweeps of an f32 or bf16 cost (CT), never CLOSE: the f32 total of the
-// launch is stored to acc.
+// launch is stored to acc. PK: the packed route (int16 cost and
+// accumulator, DPL = 8 disparities a lane, three directions, CLOSE): a
+// lane's values as four pairs of int16 halves, never widened; p1 and p2
+// are then P1 and P2 - P1 in both halves of a word.
 // grid (strips of CW columns, frames of the chunk), VW (16 or 32) warps, 64
 // registers a thread; LPP lanes a pixel, DPL disparities a lane,
 // LPP * DPL >= D.
-// xch: word [frame][strip][side][XCH_RING][LPP * DPL], zeroed before the
-// launch; side 0 the first column's dx -1 carry, side 1 the last's dx +1.
+// xch: word [frame][strip][side][XCH_RING][WP] (WP words a pixel: DP, or
+// DP / 2 pairs), zeroed before the launch; side 0 the first column's dx -1
+// carry, side 1 the last's dx +1.
 // rkey: int [frame][row][strip][CW + D - 1], the strip's right-image keys.
 template <typename CT, typename AT, int VW, int LPP, int DPL, int NDIR,
-          bool CLOSE>
+          bool CLOSE, bool PK = false>
 __global__ void __launch_bounds__(VW * 32, 32 / VW)
 vertical_kernel(const CT* __restrict__ cost, AT* acc,
                 float* __restrict__ disp, float* __restrict__ margin,
-                int* __restrict__ rkey, XchWord<CT>* xch, int H, int W, int D,
-                int dy, typename Compute<CT>::type p1,
+                int* __restrict__ rkey, XchWord<CT, PK>* xch, int H, int W,
+                int D, int dy, typename Compute<CT>::type p1,
                 typename Compute<CT>::type p2, int md, int uniq, int lr,
                 int frame0) {
   using C = typename Compute<CT>::type;
-  using X = Xch<C>;
+  using R = Reg<CT, PK>;
+  using X = Xch<R>;
   using Word = typename X::Word;
   constexpr bool FLOAT = std::is_same<C, float>::value;
   static_assert(!(FLOAT && CLOSE), "the WTA takes an integer total");
+  static_assert(!PK || (std::is_same<CT, int16_t>::value &&
+                        std::is_same<AT, int16_t>::value && DPL == 8 &&
+                        NDIR == 3 && CLOSE),
+                "the packed route is B3's int16 5-path closing launch");
   extern __shared__ int4 vsm4[];
   constexpr int PPW = 32 / LPP;  // pixels (columns) of a warp
   constexpr int CW = VW * PPW;   // columns of the block's strip
   constexpr int DP = LPP * DPL;  // disparities a pixel's lanes hold
+  constexpr int NR = PK ? DPL / 2 : DPL;  // registers a lane's values take
+  constexpr int WP = PK ? DP / 2 : DP;    // words a pixel's carries take
   constexpr int CB = DP * (int)sizeof(CT);         // bytes of a ring slot:
   constexpr int SLOT = CB + DP * (int)sizeof(AT);  // cost, then accumulator
   const C sent = FLOAT ? C(BIGF) : C(SENT);
   const int tid = threadIdx.x, lane = tid & 31;
   const int dl = lane % LPP, d0 = dl * DPL;
+  const int w0 = dl * NR;  // the lane's first word of a pixel's WP
   const int colb = (tid >> 5) * PPW + lane / LPP;  // column in the strip
   const int x = blockIdx.x * CW + colb;
   const bool active = x < W;
   const long long b = frame0 + blockIdx.y;
-  const int n_r = CW + D - 1, pitch = keys_pitch(D, VW);
+  const int n_r = CW + D - 1, pitch = keys_pitch(D, VW, PK);
   const bool right = CLOSE && lr >= 0;
-  C* Lsm = (C*)vsm4;                                            // [2][2][CW][DP]
-  int* rmin = (int*)(Lsm + (NDIR == 3 ? 2 * 2 * CW * DP : 0));  // [2][pitch]
+  R* Lsm = (R*)vsm4;                                            // [2][2][CW][WP]
+  int* rmin = (int*)(Lsm + (NDIR == 3 ? 2 * 2 * CW * WP : 0));  // [2][pitch]
   char* ring = (char*)(rmin + (right ? 2 * pitch : 0)) + colb * (PF * SLOT);
   if (right) {
     for (int i = tid; i < 2 * pitch; i += VW * 32) rmin[i] = RINIT;
     __syncthreads();
   }
+  // packed route: a lane whose run reaches past D masks those halves
+  const bool partial = PK && d0 + DPL > D;
+  // pair k's halves below D
+  auto keep = [&](int k) {
+    return (d0 + 2 * k < D ? 0xffffu : 0u) |
+           (d0 + 2 * k + 1 < D ? 0xffff0000u : 0u);
+  };
 
   // A diagonal's carry comes from the neighbour column: zero at the image
   // edge, from the next block (polled) for the strip's first and last
@@ -477,16 +601,16 @@ vertical_kernel(const CT* __restrict__ cost, AT* acc,
   const int kA = edge_p ? 1 : 0, kB = 1 - kA;
   const bool zeroA = kA == 0 ? zero_p : zero_n;
   const bool zeroB = kB == 0 ? zero_p : zero_n;
-  const int srcA = (kA * CW + colb + (kA == 0 ? -1 : 1)) * DP + d0;
-  const int srcB = (kB * CW + colb + (kB == 0 ? -1 : 1)) * DP + d0;
-  const int dstA = (kA * CW + colb) * DP + d0;
-  const int dstB = (kB * CW + colb) * DP + d0;
+  const int srcA = (kA * CW + colb + (kA == 0 ? -1 : 1)) * WP + w0;
+  const int srcB = (kB * CW + colb + (kB == 0 ? -1 : 1)) * WP + w0;
+  const int dstA = (kA * CW + colb) * WP + w0;
+  const int dstB = (kB * CW + colb) * WP + w0;
   Word* xmine = xch + ((long long)blockIdx.y * gridDim.x + blockIdx.x) *
-                          (2 * XCH_RING * DP);
+                          (2 * XCH_RING * WP);
   // the left block's side 1 or the right block's side 0; our side 0 or 1
   const Word* xfrom =
-      (edge_p ? xmine - XCH_RING * DP : xmine + 2 * XCH_RING * DP) + d0;
-  Word* xto = xmine + (edge_n ? XCH_RING * DP : 0) + d0;
+      (edge_p ? xmine - XCH_RING * WP : xmine + 2 * XCH_RING * WP) + w0;
+  Word* xto = xmine + (edge_n ? XCH_RING * WP : 0) + w0;
 
   // this column's pixel of the sweep's current row, and of the next row to
   // fetch, as offsets into the volume
@@ -527,9 +651,17 @@ vertical_kernel(const CT* __restrict__ cost, AT* acc,
     cp_async_commit();
   }
 
-  C L0[DPL];  // carries start at zero (f32: the sentinel past D)
+  R c[NR];  // this row's cost: the same for every direction
+  // one step of the recurrence from carries L
+  auto step = [&](const R (&L)[NR], R (&Ln)[NR]) {
+    if constexpr (PK)
+      sgm_step_pairs<LPP, NR>(L, c, Ln, dl, p1, p2);
+    else
+      sgm_step<LPP, DPL>(L, c, Ln, dl, p1, p2, sent);
+  };
+  R L0[NR];  // carries start at zero (f32: the sentinel past D)
 #pragma unroll
-  for (int j = 0; j < DPL; ++j) L0[j] = FLOAT && d0 + j >= D ? sent : C(0);
+  for (int j = 0; j < NR; ++j) L0[j] = FLOAT && d0 + j >= D ? sent : C(0);
   // the WTA's results of row t, kept by lane t % LPP of the pixel until
   // the pixel's lanes finish LPP rows together
   int w_key = 0, w_m1 = 0, w_p1 = 0, w_sec = 0;
@@ -545,73 +677,88 @@ vertical_kernel(const CT* __restrict__ cost, AT* acc,
       (rk - rk_step)[tid] = rm[tid];
       rm[tid] = RINIT;
     }
-    C c[DPL], a[DPL];
+    R a[NR];
     cp_async_wait<PF - 1>();  // row t has landed
     __syncwarp();
     {
       const char* slot = ring + (t & (PF - 1)) * SLOT;
-      if (NDIR > 0) load_run<CT, DPL>((const CT*)slot + d0, c);
-      load_run<AT, DPL>((const AT*)(slot + CB) + d0, a);
+      if constexpr (PK) {
+        // the pairs as they lie in the ring; past D the cost sentinel
+        load_run<unsigned, NR>((const unsigned*)slot + w0, c);
+        load_run<unsigned, NR>((const unsigned*)(slot + CB) + w0, a);
+        if (partial) {
 #pragma unroll
-      for (int j = 0; j < DPL; ++j) {  // the only int masks of the row
-        if (NDIR == 0 || d0 + j >= D) c[j] = sent;
-        if (d0 + j >= D) a[j] = sent;
+          for (int k = 0; k < NR; ++k)
+            c[k] = (c[k] & keep(k)) | (pair_of(SENT16) & ~keep(k));
+        }
+      } else {
+        if (NDIR > 0) load_run<CT, DPL>((const CT*)slot + d0, c);
+        load_run<AT, DPL>((const AT*)(slot + CB) + d0, a);
+#pragma unroll
+        for (int j = 0; j < DPL; ++j) {  // the only int masks of the row
+          if (NDIR == 0 || d0 + j >= D) c[j] = sent;
+          if (d0 + j >= D) a[j] = sent;
+        }
       }
     }
     __syncwarp();  // the slot is free for row t + PF
     if (t + PF < H) fetch(t + PF, obase + PF * vol_step);
     cp_async_commit();
 
-    C total[DPL], Lp[DPL], Ln[DPL];
+    R total[NR], Lp[NR], Ln[NR];
 #pragma unroll
-    for (int j = 0; j < DPL; ++j) total[j] = a[j];
+    for (int j = 0; j < NR; ++j) total[j] = a[j];
     if (NDIR == 3) {
       const unsigned tag = (unsigned)t & X::TAG;  // of the row before
       const unsigned tag_out = (unsigned)(t + 1) & X::TAG;
-      C* cur = Lsm + (t & 1) * (2 * CW * DP);
-      const C* prev = Lsm + ((t - 1) & 1) * (2 * CW * DP);
-      const Word* from = xfrom + ((t - 1) & (XCH_RING - 1)) * DP;
-      Word* to = xto + (t & (XCH_RING - 1)) * DP;
+      R* cur = Lsm + (t & 1) * (2 * CW * WP);
+      const R* prev = Lsm + ((t - 1) & 1) * (2 * CW * WP);
+      const Word* from = xfrom + ((t - 1) & (XCH_RING - 1)) * WP;
+      Word* to = xto + (t & (XCH_RING - 1)) * WP;
+      // the words of this lane's carries that the neighbour publishes:
+      // every pair; of single values, those below D
+      auto published = [&](int j) { return PK || d0 + j < D; };
       // the neighbour's words, asked for before direction kA's step
-      Word pw[DPL];
+      Word pw[NR];
       const bool polls = edge && t > 0;
       if (polls) {
 #pragma unroll
-        for (int j = 0; j < DPL; ++j)
-          pw[j] = d0 + j < D ? *(const volatile Word*)(from + j) : Word(0);
+        for (int j = 0; j < NR; ++j)
+          pw[j] = published(j) ? *(const volatile Word*)(from + j) : Word(0);
       }
       // direction kA
       if (t == 0 || zeroA) {
 #pragma unroll
-        for (int j = 0; j < DPL; ++j)  // the zero lateral fill
+        for (int j = 0; j < NR; ++j)  // the zero lateral fill
           Lp[j] = FLOAT && d0 + j >= D ? sent : C(0);
       } else {
-        load_run<C, DPL>(prev + srcA, Lp);
+        load_run<R, NR>(prev + srcA, Lp);
       }
-      sgm_step<LPP, DPL>(Lp, c, Ln, dl, p1, p2, sent);
+      step(Lp, Ln);
 #pragma unroll
-      for (int j = 0; j < DPL; ++j)
+      for (int j = 0; j < NR; ++j)
         if (FLOAT && d0 + j >= D) Ln[j] = sent;
-      store_run<C, DPL>(cur + dstA, Ln);
+      store_run<R, NR>(cur + dstA, Ln);
       if constexpr (!FLOAT) {
 #pragma unroll
-        for (int j = 0; j < DPL; ++j) total[j] += Ln[j];
+        for (int j = 0; j < NR; ++j) total[j] += Ln[j];
       }
       if (edge) {
 #pragma unroll
-        for (int j = 0; j < DPL; ++j)
-          if (d0 + j < D) *(volatile Word*)(to + j) = X::pack(tag_out, Ln[j]);
+        for (int j = 0; j < NR; ++j)
+          if (published(j))
+            *(volatile Word*)(to + j) = X::pack(tag_out, Ln[j]);
       }
       // direction kB
       if (t == 0 || zeroB) {
 #pragma unroll
-        for (int j = 0; j < DPL; ++j)
+        for (int j = 0; j < NR; ++j)
           Lp[j] = FLOAT && d0 + j >= D ? sent : C(0);
       } else if (edge) {
 #pragma unroll
-        for (int j = 0; j < DPL; ++j) {
-          C v = sent;
-          if (d0 + j < D) {
+        for (int j = 0; j < NR; ++j) {
+          R v = PK ? R(0) : R(sent);
+          if (published(j)) {
             Word w = pw[j];
             unsigned spins = 0;
             while (X::tag(w) != tag) {
@@ -623,22 +770,22 @@ vertical_kernel(const CT* __restrict__ cost, AT* acc,
           Lp[j] = v;
         }
       } else {
-        load_run<C, DPL>(prev + srcB, Lp);
+        load_run<R, NR>(prev + srcB, Lp);
       }
-      sgm_step<LPP, DPL>(Lp, c, Ln, dl, p1, p2, sent);
+      step(Lp, Ln);
 #pragma unroll
-      for (int j = 0; j < DPL; ++j)
+      for (int j = 0; j < NR; ++j)
         if (FLOAT && d0 + j >= D) Ln[j] = sent;
-      store_run<C, DPL>(cur + dstB, Ln);
+      store_run<R, NR>(cur + dstB, Ln);
       if constexpr (!FLOAT) {
 #pragma unroll
-        for (int j = 0; j < DPL; ++j) total[j] += Ln[j];
+        for (int j = 0; j < NR; ++j) total[j] += Ln[j];
       }
     }
     if (NDIR > 0) {
-      sgm_step<LPP, DPL>(L0, c, Ln, dl, p1, p2, sent);
+      step(L0, Ln);
 #pragma unroll
-      for (int j = 0; j < DPL; ++j) {
+      for (int j = 0; j < NR; ++j) {
         L0[j] = FLOAT && d0 + j >= D ? sent : Ln[j];
         total[j] += Ln[j];
       }
@@ -668,24 +815,53 @@ vertical_kernel(const CT* __restrict__ cost, AT* acc,
       }
     } else {
       // left-image WTA of the total in registers; first minimum wins ties
-      // (past D the total is SENT or more: never a minimum)
+      // by the key v*256 + d (past D the total is SENT or more, packed
+      // TSENT16: never a minimum)
       int kv[DPL];
-      int key = INT_MAX;
+      int key = INT_MAX, sec;
+      if constexpr (PK) {
+        // past D TSENT16; a total's bytes above its disparity's, the key
+        // in one permute (dk: pair k's two disparities as bytes)
+        if (partial) {
 #pragma unroll
-      for (int j = 0; j < DPL; ++j) {
-        kv[j] = total[j] * 256 + (d0 + j);
-        key = min(key, kv[j]);
+          for (int k = 0; k < NR; ++k)
+            total[k] = (total[k] & keep(k)) | (pair_of(TSENT16) & ~keep(k));
+        }
+#pragma unroll
+        for (int k = 0; k < NR; ++k) {
+          const unsigned dk = (unsigned)(d0 + 2 * k) * 0x101u + 0x100u;
+          kv[2 * k] = (int)__byte_perm(total[k], dk, 0x6104);
+          kv[2 * k + 1] = (int)__byte_perm(total[k], dk, 0x6325);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < DPL; ++j) kv[j] = total[j] * 256 + (d0 + j);
       }
+#pragma unroll
+      for (int j = 0; j < DPL; ++j) key = min(key, kv[j]);
       key = seg_min<LPP>(key);
       const int d_int = key & 255;
-      const int s_m1 = value_at<LPP, DPL>(total, d_int > 0 ? d_int - 1 : 0);
-      const int s_p1 =
-          value_at<LPP, DPL>(total, d_int < D - 1 ? d_int + 1 : D - 1);
-      int sec = SENT;
+      const int dm1 = d_int > 0 ? d_int - 1 : 0;
+      const int dp1 = d_int < D - 1 ? d_int + 1 : D - 1;
+      int s_m1, s_p1;
+      if constexpr (PK) {
+        s_m1 = value_at<LPP, DPL>(kv, dm1) >> 8;
+        s_p1 = value_at<LPP, DPL>(kv, dp1) >> 8;
+        int sk = INT_MAX;
 #pragma unroll
-      for (int j = 0; j < DPL; ++j)
-        if (abs(d0 + j - d_int) > 1) sec = min(sec, total[j]);
-      sec = seg_min<LPP>(sec);
+        for (int j = 0; j < DPL; ++j)
+          if (abs(d0 + j - d_int) > 1) sk = min(sk, kv[j]);
+        sk = seg_min<LPP>(sk) >> 8;
+        sec = sk >= TSENT16 ? SENT : sk;
+      } else {
+        s_m1 = value_at<LPP, DPL>(total, dm1);
+        s_p1 = value_at<LPP, DPL>(total, dp1);
+        sec = SENT;
+#pragma unroll
+        for (int j = 0; j < DPL; ++j)
+          if (abs(d0 + j - d_int) > 1) sec = min(sec, total[j]);
+        sec = seg_min<LPP>(sec);
+      }
       if (right && active) {
         // right-image WTA: pixel x votes v*256 + d for xr = x - d - md
         int* rm = rmin + (t & 1) * pitch + colb + (D - 1);
@@ -703,24 +879,9 @@ vertical_kernel(const CT* __restrict__ cost, AT* acc,
       if ((t & (LPP - 1)) == LPP - 1 || t == H - 1) {
         // LPP rows of the pixel at once, lane dl the row t - t % LPP + dl
         const int back = (t & (LPP - 1)) - dl;  // rows before row t
-        if (active && back >= 0) {
-          const long long oo = o - back * row_step;
-          const int k_d = w_key & 255;
-          const float fs = (float)(w_key >> 8);
-          const float fm1 = (float)w_m1, fp1 = (float)w_p1;
-          const float denom = (fm1 + fp1) - 2.0f * fs;
-          float sub =
-              denom > 1e-6f ? (fm1 - fp1) / (2.0f * denom + 1e-12f) : 0.0f;
-          sub = fminf(fmaxf(sub, -0.5f), 0.5f);
-          if (k_d == 0 || k_d == D - 1) sub = 0.0f;
-          const float dval = ((float)k_d + sub) + (float)md;
-          bool valid = x >= md + D;
-          const float second = w_sec == SENT ? 1e9f : (float)w_sec;
-          if (uniq > 0)
-            valid = valid && (second * 100.0f >= fs * (100.0f + uniq));
-          if (margin) margin[oo] = fmaxf(second - fs, 0.0f) / (fs + 1.0f);
-          disp[oo] = valid ? dval : (float)(md - 1);
-        }
+        if (active && back >= 0)
+          wta_store(disp, margin, o - back * row_step, x, D, md, uniq, w_key,
+                    w_m1, w_p1, w_sec);
       }
     }
     o += row_step;
@@ -831,8 +992,12 @@ int horizontal_shape(const void* cost, void* acc, long long rows, int W,
 // D = 64 on 132 multiprocessors: a launch of 32-warp blocks takes the same
 // time for one frame as for the four it can hold, one of 16-warp blocks
 // time in proportion to its frames. (A float cost's 32-warp block takes
-// 192 KB of shared memory at every D, so it too is one a multiprocessor.)
-int vertical_warps(int B, int W, int D) {
+// 192 KB of shared memory at every D, so it too is one a multiprocessor,
+// as is the packed route's, 194 KB with the right-image keys.) The packed
+// route's strips hold twice the columns, so it halves the blocks first: 16
+// warps where those launches still give four fifths of the multiprocessors
+// a block, else 8 (at 1080p: 32 from 8 frames, 16 from 4, 8 below).
+int vertical_warps(int B, int W, int D, bool packed) {
   static int sms = 0;  // of the current device, read once
   if (sms == 0) {
     int dev = 0;
@@ -841,33 +1006,42 @@ int vertical_warps(int B, int W, int D) {
             cudaSuccess)
       return 16;
   }
-  const int cw = strip_cols(D, 32);
-  const int strips = (W + cw - 1) / cw;
-  const int fit = sms / strips > 0 ? sms / strips : 1;  // frames a launch
-  const int launches = (B + fit - 1) / fit;
-  return 5LL * B * strips >= 4LL * sms * launches ? 32 : 16;
+  for (int vw = 32; vw >= 16; vw /= 2) {
+    const int cw = strip_cols(D, vw, packed);
+    const int strips = (W + cw - 1) / cw;
+    const int slots = sms * (32 / vw);  // blocks resident at once
+    const int fit = slots / strips > 0 ? slots / strips : 1;  // frames a launch
+    const int launches = (B + fit - 1) / fit;
+    if (5LL * B * strips >= 4LL * sms * launches) return vw;
+    if (!packed) return 16;
+  }
+  return 8;
 }
 
 template <typename CT, typename AT, int VW, int LPP, int DPL, int NDIR,
-          bool CLOSE>
+          bool CLOSE, bool PK = false>
 int launch_vertical(const void* cost, void* acc, float* disp, float* margin,
                     int* rkey, void* xch, int B, int H, int W, int D, int dy,
                     float p1, float p2, int md, int uniq, int lr, int* plan,
                     cudaStream_t s) {
   using C = typename Compute<CT>::type;
-  auto kernel = vertical_kernel<CT, AT, VW, LPP, DPL, NDIR, CLOSE>;
+  using Word = XchWord<CT, PK>;
+  auto kernel = vertical_kernel<CT, AT, VW, LPP, DPL, NDIR, CLOSE, PK>;
   const int DP = LPP * DPL;
-  const size_t smem = vertical_smem(VW, DP, D, NDIR, CLOSE && lr >= 0,
+  const int WP = PK ? DP / 2 : DP;  // exchange words a pixel
+  const size_t smem = vertical_smem(VW, DP, D, NDIR, CLOSE && lr >= 0, PK,
                                     (int)sizeof(CT), (int)sizeof(AT));
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const int cw = strip_cols(D, VW);
+  const int cw = strip_cols(D, VW, PK);
   const int strips = (W + cw - 1) / cw;
   const CT* cp = (const CT*)cost;
   AT* ap = (AT*)acc;
-  XchWord<CT>* xp = (XchWord<CT>*)xch;
-  C cp1 = (C)p1, cp2 = (C)p2;
+  Word* xp = (Word*)xch;
+  // the packed route takes P1 and P2 - P1 in both halves of a word
+  C cp1 = PK ? (C)pair_of((int)p1) : (C)p1;
+  C cp2 = PK ? (C)pair_of((int)p2 - (int)p1) : (C)p2;
   if (NDIR < 3) {
     // no carry crosses a column: blocks are independent
     int frame0 = 0;
@@ -902,8 +1076,8 @@ int launch_vertical(const void* cost, void* acc, float* disp, float* margin,
   for (int frame0 = 0; frame0 < B; frame0 += chunk) {
     const int n = B - frame0 < chunk ? B - frame0 : chunk;
     if ((e = cudaMemsetAsync(xp, 0,
-                             sizeof(XchWord<CT>) * (size_t)n * strips * 2 *
-                                 XCH_RING * DP,
+                             sizeof(Word) * (size_t)n * strips * 2 *
+                                 XCH_RING * WP,
                              s)) != cudaSuccess)
       return (int)e;
     void* args[] = {&cp,  &ap,  &disp, &margin, &rkey, &xp, &H,  &W,
@@ -942,12 +1116,37 @@ int vertical_mode(const void* cost, void* acc, float* disp, float* margin,
   return (int)cudaErrorInvalidValue;
 }
 
-// lanes a pixel and disparities a lane by D, as lanes_per_pixel
+// lanes a pixel and disparities a lane by D, as lanes_per_pixel; packed:
+// the packed route, eight disparities a lane, only for an int16 cost and
+// accumulator, three directions and the WTA, and not 64 < D <= 96
 template <typename CT, typename AT>
 int vertical_shape(const void* cost, void* acc, float* disp, float* margin,
                    int* rkey, void* xch, int B, int H, int W, int D,
-                   int num_dirs, int dy, int close, float p1, float p2,
-                   int md, int uniq, int lr, int* plan, cudaStream_t s) {
+                   int num_dirs, int dy, int close, int packed, float p1,
+                   float p2, int md, int uniq, int lr, int* plan,
+                   cudaStream_t s) {
+  if (D < 1 || D > 128) return (int)cudaErrorInvalidValue;
+  const int vw = vertical_warps(B, W, D, packed);
+  const bool wide = vw == 32;
+  if (packed) {
+    if constexpr (std::is_same<CT, int16_t>::value &&
+                  std::is_same<AT, int16_t>::value) {
+#define V3D_PACKED_VW(VW, LPP)                                            \
+  launch_vertical<CT, AT, VW, LPP, 8, 3, true, true>(                     \
+      cost, acc, disp, margin, rkey, xch, B, H, W, D, dy, p1, p2, md,     \
+      uniq, lr, plan, s)
+#define V3D_PACKED(LPP)                                                   \
+  return vw == 32   ? V3D_PACKED_VW(32, LPP)                              \
+         : vw == 16 ? V3D_PACKED_VW(16, LPP)                              \
+                    : V3D_PACKED_VW(8, LPP)
+      if (num_dirs == 3 && close && D <= 32) V3D_PACKED(4);
+      if (num_dirs == 3 && close && D <= 64) V3D_PACKED(8);
+      if (num_dirs == 3 && close && D > 96) V3D_PACKED(16);
+#undef V3D_PACKED
+#undef V3D_PACKED_VW
+    }
+    return (int)cudaErrorInvalidValue;
+  }
 #define V3D_SHAPE(LPP, DPL)                                               \
   return wide ? vertical_mode<CT, AT, 32, LPP, DPL>(                      \
                     cost, acc, disp, margin, rkey, xch, B, H, W, D,       \
@@ -955,8 +1154,6 @@ int vertical_shape(const void* cost, void* acc, float* disp, float* margin,
               : vertical_mode<CT, AT, 16, LPP, DPL>(                      \
                     cost, acc, disp, margin, rkey, xch, B, H, W, D,       \
                     num_dirs, dy, close, p1, p2, md, uniq, lr, plan, s)
-  if (D < 1 || D > 128) return (int)cudaErrorInvalidValue;
-  const bool wide = vertical_warps(B, W, D) == 32;
   if (D <= 32) V3D_SHAPE(8, 4);
   if (D <= 64) V3D_SHAPE(16, 4);
   if (D <= 96) V3D_SHAPE(32, 3);
@@ -1002,7 +1199,11 @@ extern "C" int v3d_sgm_horizontal(void* cost, void* acc, int B, int H, int W,
 // 0, each strip's right-image keys min v*256 + d into rkey, B *
 // v3d_sgm_vertical_keys(H, W, D) ints, every one written. An f32 or bf16
 // cost (B8a), f32 acc, num_dirs 1 or 3, close = 0: the f32 total is
-// stored to acc; disp, margin and rkey are not used. xch is scratch of
+// stored to acc; disp, margin and rkey are not used. packed = 1 takes the
+// packed route (the note): int16 cost and acc, D <= 64 or D > 96, num_dirs
+// 3, close = 1, whole penalties P1, P2 >= 0 with SENT16 + P1 + P2 < 2^15,
+// and every path value plus the larger penalty below SENT16 (the caller's
+// bound; the kernel cannot see the cost's range). xch is scratch of
 // v3d_sgm_vertical_scratch(B, W, cost_type) ints. plan, when not NULL,
 // receives six host ints of a 3-direction launch: blocks per
 // multiprocessor, multiprocessors, strips per frame, frames per chunk,
@@ -1012,12 +1213,15 @@ extern "C" int v3d_sgm_vertical(void* cost, void* acc, void* disp,
                                 int H, int W, int D, int num_dirs, int dy,
                                 int close, float p1, float p2, int md,
                                 int uniq, int lr, int cost_type, int acc_type,
-                                void* plan, void* stream) {
+                                int packed, void* plan, void* stream) {
 #define V3D_TYPES(CT, AT)                                                  \
   return vertical_shape<CT, AT>(cost, acc, (float*)disp, (float*)margin,   \
                                 (int*)rkey, xch, B, H, W, D, num_dirs, dy, \
-                                close, p1, p2, md, uniq, lr, (int*)plan,   \
-                                (cudaStream_t)stream)
+                                close, packed, p1, p2, md, uniq, lr,       \
+                                (int*)plan, (cudaStream_t)stream)
+  if (packed && !(p1 >= 0.0f && p2 >= 0.0f &&
+                  v3dsgm::SENT16 + (double)p1 + (double)p2 < 32768.0))
+    return (int)cudaErrorInvalidValue;
   if (cost_type == T_I16 && acc_type == T_I16) V3D_TYPES(int16_t, int16_t);
   if (cost_type == T_I16 && acc_type == T_F32) V3D_TYPES(int16_t, float);
   if (cost_type == T_F32 && acc_type == T_F32) V3D_TYPES(float, float);
@@ -1035,19 +1239,22 @@ extern "C" int v3d_sgm_vertical_scratch(int B, int W, int cost_type) {
 }
 
 // ints of right-image keys per frame that a closing v3d_sgm_vertical on B
-// frames with lr >= 0 writes and v3d_sgm_lr_check reads
-extern "C" int v3d_sgm_vertical_keys(int B, int H, int W, int D) {
-  const int cw = strip_cols(D, vertical_warps(B, W, D));
+// frames with lr >= 0 (and the same packed) writes and v3d_sgm_lr_check
+// reads
+extern "C" int v3d_sgm_vertical_keys(int B, int H, int W, int D,
+                                     int packed) {
+  const int cw = strip_cols(D, vertical_warps(B, W, D, packed), packed);
   return H * ((W + cw - 1) / cw) * (cw + D - 1);
 }
 
 // The LR check of B3 on the disparity and right-image keys of the closing
-// v3d_sgm_vertical launch, in place.
+// v3d_sgm_vertical launch (with the same packed), in place.
 extern "C" int v3d_sgm_lr_check(void* disp, void* rkey, int B, int H, int W,
-                                int D, int md, int lr, void* stream) {
+                                int D, int md, int lr, int packed,
+                                void* stream) {
   long long n = (long long)B * H * W;
   lr_kernel<<<(unsigned)((n + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
       (float*)disp, (const int*)rkey, n, W, D, md, lr,
-      strip_cols(D, vertical_warps(B, W, D)));
+      strip_cols(D, vertical_warps(B, W, D, packed), packed));
   return (int)cudaGetLastError();
 }

@@ -45,10 +45,10 @@ _SIGNATURES = {
     # sgm.cu
     "v3d_sgm_horizontal": [_P, _P, _I, _I, _I, _I, _F, _F, _I, _I, _P, _P],
     "v3d_sgm_vertical": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                         _F, _F, _I, _I, _I, _I, _I, _P, _P],
+                         _F, _F, _I, _I, _I, _I, _I, _I, _P, _P],
     "v3d_sgm_vertical_scratch": [_I, _I, _I],
-    "v3d_sgm_vertical_keys": [_I, _I, _I, _I],
-    "v3d_sgm_lr_check": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "v3d_sgm_vertical_keys": [_I, _I, _I, _I, _I],
+    "v3d_sgm_lr_check": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # wmajor.cu
     "v3d_wmajor_sweep": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _I, _I,
                          _P, _P],

@@ -13,8 +13,12 @@ forward and backward horizontal sweeps, int16 or f32 accumulator); B3
 replaces ``sgm_wta_pallas_dmajor`` (the vertical sweeps of the mode --
 top-down for 5 paths, top-down then bottom-up for 4 and 8 -- plus WTA);
 B8a replaces ``_directional_pass``, the sweeps of ``sgm_aggregate_pallas``
-on an f32 or bf16 cost. Volumes are in the port's ``(B, H, W, D)`` layout;
-the plain twins are :func:`video3d_tpu_torch.ops.stereo.sgm_sweep_dmajor`,
+on an f32 or bf16 cost. B3's arithmetic is picked by
+:func:`vertical_route`: an int16 5-path mode whose values fit runs on
+packed 16-bit pairs (Hopper's DPX instructions), every other integer mode
+in int32, a float cost (B8a) in f32. Volumes are in the port's
+``(B, H, W, D)`` layout; the plain twins are
+:func:`video3d_tpu_torch.ops.stereo.sgm_sweep_dmajor`,
 :func:`~video3d_tpu_torch.ops.stereo.sgm_vertical_wta_dmajor` and
 :func:`~video3d_tpu_torch.ops.stereo.sgm_aggregate` on permuted views.
 """
@@ -28,14 +32,15 @@ import torch
 from video3d_tpu_torch.kernels import _build
 from video3d_tpu_torch.ops.stereo import (SGBMParams, acc_dtype_for_params,
                                           check_integer_totals,
-                                          integral_penalties, sgm_aggregate,
-                                          sgm_sweep_dmajor,
+                                          integral_penalties, path_bound,
+                                          sgm_aggregate, sgm_sweep_dmajor,
                                           sgm_vertical_wta_dmajor,
                                           vertical_directions,
                                           vertical_shifts)
 
 sweep_launches = 0  # B2: calls that launched the CUDA horizontal sweeps
 wta_launches = 0  # B3: calls that launched the CUDA vertical sweeps + WTA
+vertical_packed_launches = 0  # B3 calls of those on the packed route
 aggregate_launches = 0  # B8a: calls that launched the CUDA float sweeps
 # the last 3-direction vertical launch (B3's or B8a's): (blocks per
 # multiprocessor, multiprocessors, strips per frame, frames per chunk,
@@ -51,6 +56,33 @@ aggregate_plan = None
 
 # dtype codes of the C interface
 _CODE = {torch.int16: 0, torch.float32: 1, torch.bfloat16: 2}
+# the packed route's sentinel past both ends of d (csrc/sgm_common.cuh
+# SENT16): every value of the route lies in [0, 2^15)
+PACKED_SENT = 1 << 14
+
+
+def vertical_route(cost_dtype: torch.dtype, params: SGBMParams) -> str:
+    """B3's arithmetic for a cost of ``cost_dtype`` and ``params``:
+    "float" for an f32 or bf16 cost (B8a); "packed" where the values fit
+    signed 16-bit pairs (csrc/sgm.cu's note): an int16 cost and
+    accumulator, the 5-path mode (its vertical paths are the one closing
+    launch of three directions), D not in (64, 96] (where the int32
+    route's three disparities a lane fit D and the packed route's eight
+    would idle), whole penalties P1, P2 >= 0, one path's bound plus the
+    larger penalty below the sentinel, and the sentinel plus P1 + P2 below
+    2^15; else "int32"."""
+    if cost_dtype.is_floating_point:
+        return "float"
+    p1, p2 = integral_penalties(params.p1, params.p2)
+    d = params.num_disparities
+    fits = (cost_dtype == torch.int16
+            and acc_dtype_for_params(cost_dtype, params) == torch.int16
+            and params.num_paths == 5
+            and not 64 < d <= 96
+            and p1 >= 0 and p2 >= 0
+            and path_bound(params) + max(p1, p2) < PACKED_SENT
+            and PACKED_SENT + p1 + p2 < 2**15)
+    return "packed" if fits else "int32"
 
 
 def horizontal_sweeps_plain(cost: torch.Tensor,
@@ -128,16 +160,40 @@ def vertical_sweeps_wta(cost: torch.Tensor, acc: torch.Tensor,
     closing launch does the WTA on the total in registers, so the total is
     never stored: ``acc`` is left as it was at 2 and 5 paths and holds
     the horizontal plus top-down sums at 4 and 8 (updated in place). No
-    caller may read the total from it.
+    caller may read the total from it. The arithmetic is
+    :func:`vertical_route`'s; both integer routes give the same bits.
     """
-    global wta_launches, vertical_plan
+    global wta_launches, vertical_packed_launches
     if not cost.is_cuda:
         return vertical_sweeps_wta_plain(cost, acc, params, return_margin)
     _check_volume(cost, params)
-    acc_dtype = acc_dtype_for_params(cost.dtype, params)
-    _build.require(acc, acc_dtype, 4, "sgm acc")
+    _build.require(acc, acc_dtype_for_params(cost.dtype, params), 4,
+                   "sgm acc")
     if acc.shape != cost.shape:
         raise ValueError("sgm: acc and cost shapes differ")
+    packed = vertical_route(cost.dtype, params) == "packed"
+    disp, margin, rkey = vertical_launches(cost, acc, params, return_margin,
+                                           packed)
+    if rkey is not None:
+        b, h, w, d = cost.shape
+        _build.check(_build.lib().v3d_sgm_lr_check(
+            disp.data_ptr(), rkey.data_ptr(), b, h, w, d,
+            int(params.min_disparity), int(params.disp12_max_diff),
+            int(packed), _build.stream_of(cost)), "v3d_sgm_lr_check")
+    wta_launches += 1
+    vertical_packed_launches += packed
+    return (disp, margin) if return_margin else disp
+
+
+def vertical_launches(cost: torch.Tensor, acc: torch.Tensor,
+                      params: SGBMParams, return_margin: bool,
+                      packed: bool) -> tuple:
+    """B3's vertical launches of a checked call of
+    :func:`vertical_sweeps_wta` on the packed route or the int32 one:
+    (disparity before the LR check, margin or None, the strips'
+    right-image keys or None). ``packed`` only where :func:`vertical_route`
+    gives "packed"; the card's checks run both routes on such inputs."""
+    global vertical_plan
     p1, p2 = integral_penalties(params.p1, params.p2)
     lib = _build.lib()
     stream = _build.stream_of(cost)
@@ -147,7 +203,8 @@ def vertical_sweeps_wta(cost: torch.Tensor, acc: torch.Tensor,
     n_dirs = len(vertical_shifts(params.num_paths))
     disp = torch.empty((b, h, w), dtype=torch.float32, device=dev)
     margin = torch.empty_like(disp) if return_margin else None
-    rkey = (torch.empty(b * lib.v3d_sgm_vertical_keys(b, h, w, d),
+    rkey = (torch.empty(b * lib.v3d_sgm_vertical_keys(b, h, w, d,
+                                                      int(packed)),
                         dtype=torch.int32, device=dev) if lr >= 0 else None)
     xch = (torch.empty(lib.v3d_sgm_vertical_scratch(b, w, _CODE[cost.dtype]),
                        dtype=torch.int32, device=dev)
@@ -163,15 +220,10 @@ def vertical_sweeps_wta(cost: torch.Tensor, acc: torch.Tensor,
             None if xch is None else xch.data_ptr(), b, h, w, d, n_dirs, dy,
             int(close), float(p1), float(p2), int(params.min_disparity),
             int(params.uniqueness_ratio), lr, _CODE[cost.dtype],
-            _CODE[acc_dtype], plan, stream), "v3d_sgm_vertical")
+            _CODE[acc.dtype], int(packed), plan, stream), "v3d_sgm_vertical")
     if n_dirs == 3:
         vertical_plan = tuple(plan)
-    if lr >= 0:
-        _build.check(lib.v3d_sgm_lr_check(
-            disp.data_ptr(), rkey.data_ptr(), b, h, w, d,
-            int(params.min_disparity), lr, stream), "v3d_sgm_lr_check")
-    wta_launches += 1
-    return (disp, margin) if return_margin else disp
+    return disp, margin, rkey
 
 
 def sgm_aggregate_pallas(cost: torch.Tensor, num_paths: int = 8,
@@ -216,7 +268,7 @@ def sgm_aggregate_pallas(cost: torch.Tensor, num_paths: int = 8,
             cost.data_ptr(), acc.data_ptr(), None, None, None,
             None if xch is None else xch.data_ptr(), b, h, w, d, n_dirs, dy,
             0, float(p1), float(p2), 0, 0, -1, code, _CODE[torch.float32],
-            plan, stream), "v3d_sgm_vertical")
+            0, plan, stream), "v3d_sgm_vertical")
     chunks = 1
     if n_dirs == 3:
         vertical_plan = tuple(plan)

@@ -90,10 +90,15 @@ def acc_dtype_for_params(cost_dtype: torch.dtype,
             else torch.float32)
 
 
+def path_bound(params: SGBMParams) -> float:
+    """Largest value one direction's path reaches on an integer cost volume
+    of ``params``: cost_max + P2."""
+    return params.block_size**2 * 2 * params.prefilter_cap + params.p2
+
+
 def path_total_bound(params: SGBMParams) -> int:
     """Largest path total an integer cost volume of ``params`` can reach."""
-    cost_max = params.block_size**2 * 2 * params.prefilter_cap
-    return int(params.num_paths * (cost_max + params.p2))
+    return int(params.num_paths * path_bound(params))
 
 
 def check_integer_totals(params: SGBMParams) -> None:
@@ -516,7 +521,10 @@ def sgbm_disparity(
         else:
             acc = wmajor.horizontal_sweeps_wmajor(cost, params,
                                                   horizontal_route)
-    with span("matcher.vertical", left_gray):
+    # packed: the frames whose B3 runs on packed 16-bit pairs
+    packed = (cost.shape[0] if cost.is_cuda and sgm.vertical_route(
+        cost.dtype, params) == "packed" else 0)
+    with span("matcher.vertical", left_gray, packed=packed):
         res = sgm.vertical_sweeps_wta(cost, acc, params,
                                       return_margin=return_margin)
     disp, margin = res if return_margin else (res, None)

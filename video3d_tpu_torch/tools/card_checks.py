@@ -7,7 +7,9 @@ of rows and no multiple of one of its segments, disparity counts from one
 lane-run to four (and ones no vector width divides), a non-zero
 ``min_disparity``, other block sizes, batches of 1 and 3 (and of enough
 small frames that B3 picks its wider blocks), and for B3 every mode (2, 4,
-5 and 8 paths) with and without the margin. B2 runs B3's shapes (and
+5 and 8 paths) with and without the margin; B3's packed route
+(``B3_PACKED_CASES``) also random and extreme costs, the largest P2 it
+admits and a 1080p batch of 8, bit-equal to the int32 route and the twin. B2 runs B3's shapes (and
 widths below and around twice its ring of pixels) with the int16 and the
 f32 accumulator; B4 widths and heights off its strip and segment sizes and
 below its window, 2 to 9 bands and one band a disparity (both counting
@@ -51,7 +53,7 @@ import torch
 
 from video3d_tpu_torch.kernels import (costvol, flowmatch, image, sgm,
                                        speckle, warp, wmajor)
-from video3d_tpu_torch.ops import flow
+from video3d_tpu_torch.ops import flow, stereo
 from video3d_tpu_torch.ops.image import eyes_gray_plain, resize2d
 from video3d_tpu_torch.ops.speckle import speckle_filter_device
 from video3d_tpu_torch.ops.stereo import SGBMParams, sgm_aggregate
@@ -92,6 +94,28 @@ B3_SHAPES = [
 ]
 B3_CASES = [shape + (paths, margin) for shape in B3_SHAPES
             for paths in (2, 4, 5, 8) for margin in (False, True)]
+
+# B3's packed route (``sgm.vertical_route`` "packed"): (batch, height,
+# width, num_disparities, min_disparity, p2, fill of the cost: B1's on a
+# gray pair, or random, every cost at cost_max, or 0 / cost_max
+# alternating): D from one lane-run to four, odd widths and heights, pairs
+# half past D (D = 18, 33), the largest P2 the route admits at the
+# defaults (4449), 32-warp blocks, and the stage's batch of 8 at 1080p
+B3_PACKED_CASES = [
+    (1, 37, 257, 16, 0, 2400.0, "gray"),
+    (3, 9, 131, 32, 0, 2400.0, "gray"),
+    (1, 45, 199, 48, 3, 2400.0, "gray"),
+    (2, 21, 333, 64, 0, 2400.0, "gray"),
+    (1, 19, 129, 18, 0, 2400.0, "random"),
+    (1, 13, 101, 33, 0, 2400.0, "random"),
+    (1, 11, 97, 128, 0, 2400.0, "random"),
+    (1, 9, 77, 64, 0, 4449.0, "random"),
+    (1, 9, 77, 64, 0, 4449.0, "max"),
+    (1, 9, 77, 48, 0, 4449.0, "alternate"),
+    (1, 9, 77, 64, 0, 2400.0, "alternate"),
+    (26, 9, 257, 64, 0, 2400.0, "gray"),
+    (8, 1080, 1920, 64, 0, 2400.0, "gray"),
+]
 
 # (batch, height, width, num_disparities, num_paths): B3's shapes, then
 # widths of 1, 2, below and around twice the ring of pixels in flight, and
@@ -284,15 +308,21 @@ def check_b1(device, b, h, w, d, min_d, block, seed=7) -> None:
 def check_b3(device, b, h, w, d, min_d, paths, margin, seed=8) -> None:
     """B3 on the card against its twin on B1's cost and B2's accumulator:
     identical validity, disparity within 1e-5, margin within rtol 1e-6;
-    the horizontal accumulator is read, never the total."""
+    the horizontal accumulator is read, never the total. 4 and 8 paths,
+    and D in (64, 96], take the int32 route; the rest of 5 paths the
+    packed one."""
     p = SGBMParams(num_disparities=d, min_disparity=min_d, num_paths=paths)
+    route = sgm.vertical_route(torch.int16, p)
+    assert route == ("packed" if paths == 5 and not 64 < d <= 96
+                     else "int32"), route
     gl, gr = gray_pair(b, h, w, min(3 + min_d, w // 4), seed, device)
     cost = costvol.cost_volume(gl, gr, p, 2.0 * p.prefilter_cap)
     acc = sgm.horizontal_sweeps(cost, p)
     want = sgm.vertical_sweeps_wta_plain(cost, acc, p, margin)
-    n = sgm.wta_launches
+    n, n_packed = sgm.wta_launches, sgm.vertical_packed_launches
     got = sgm.vertical_sweeps_wta(cost, acc.clone(), p, margin)
     assert sgm.wta_launches == n + 1
+    assert sgm.vertical_packed_launches == n_packed + (route == "packed")
     torch.cuda.synchronize(device)
     what = f"B3 at {(b, h, w, d)} min_d {min_d}, {paths} paths"
     if margin:
@@ -304,6 +334,85 @@ def check_b3(device, b, h, w, d, min_d, paths, margin, seed=8) -> None:
         f"{what}: validity differs"
     err = (got - want).abs().max().item()
     assert err <= 1e-5, f"{what}: max |err| {err}"
+
+
+def right_keys(rkey, b, h, w, d, md, cw) -> torch.Tensor:
+    """The right-image key min v*256 + d of each xr, (B, H, W) int32, from
+    a closing B3 launch's strips of ``cw`` columns (INT_MAX: no vote), as
+    ``lr_kernel`` looks it up."""
+    strips, n_r = -(-w // cw), cw + d - 1
+    runs = rkey[:b * h * strips * n_r].view(b * h, strips * n_r)
+    xr = (torch.arange(strips, device=rkey.device).view(strips, 1) * cw
+          - (d - 1) - md + torch.arange(n_r, device=rkey.device)).view(-1)
+    ok = (xr >= 0) & (xr < w)
+    out = torch.full((b * h, w), 2**31 - 1, dtype=torch.int32,
+                     device=rkey.device)
+    out.scatter_reduce_(1, xr[ok].expand(b * h, -1), runs[:, ok], "amin")
+    return out.view(b, h, w)
+
+
+def twin_right_keys(cost, acc, p) -> torch.Tensor:
+    """The same plane from the twin's integer totals: the least total[y,
+    xr + d + md, d] * 256 + d over d."""
+    total = stereo.sgm_vertical_dmajor(cost.permute(0, 1, 3, 2),
+                                       acc.permute(0, 1, 3, 2), p)
+    b, h, d, w = total.shape
+    md = int(p.min_disparity)
+    out = torch.full((b, h, w), 2**31 - 1, dtype=torch.int32,
+                     device=cost.device)
+    for dd in range(d):
+        if dd + md < w:
+            keys = total[:, :, dd, dd + md:].to(torch.int32) * 256 + dd
+            torch.minimum(out[..., :w - dd - md], keys,
+                          out=out[..., :w - dd - md])
+    return out
+
+
+def check_b3_packed(device, b, h, w, d, min_d, p2, fill, seed=21) -> None:
+    """B3's packed route against its int32 route on the card (disparity
+    before the LR check and margin bit for bit), both routes' right-image
+    keys against the twin's, and, through ``vertical_sweeps_wta``, the
+    twin's disparity, validity and margin bit for bit; one packed
+    launch."""
+    p = SGBMParams(num_disparities=d, min_disparity=min_d, p2=p2)
+    assert sgm.vertical_route(torch.int16, p) == "packed"
+    if fill == "gray":
+        gl, gr = gray_pair(b, h, w, min(3 + min_d, w // 4), seed, device)
+        cost = costvol.cost_volume(gl, gr, p, 2.0 * p.prefilter_cap)
+    else:
+        cost_max = p.block_size**2 * 2 * p.prefilter_cap
+        if fill == "random":
+            r = np.random.default_rng(seed)
+            v = r.integers(0, cost_max + 1, (b, h, w, d))
+        elif fill == "max":
+            v = np.full((b, h, w, d), cost_max)
+        else:  # 0 / cost_max alternating over y, x and d
+            v = np.indices((b, h, w, d))[1:].sum(axis=0) % 2 * cost_max
+        cost = torch.from_numpy(v.astype(np.int16)).to(device)
+    acc = sgm.horizontal_sweeps(cost, p)
+    what = f"B3 packed at {(b, h, w, d)} min_d {min_d} P2 {p2} {fill}"
+    want_keys = twin_right_keys(cost, acc, p)
+    routes = []
+    for packed in (True, False):
+        disp, margin, rkey = sgm.vertical_launches(cost, acc, p, True, packed)
+        keys = right_keys(rkey, b, h, w, d, min_d, sgm.vertical_plan[5])
+        assert torch.equal(keys, want_keys), \
+            f"{what}: right-image keys of the packed={packed} route differ"
+        routes.append((disp, margin))
+    for k, name in enumerate(("disparity", "margin")):
+        assert torch.equal(routes[0][k], routes[1][k]), \
+            f"{what}: {name} differs from the int32 route"
+    del routes, want_keys
+    n = sgm.vertical_packed_launches
+    got, got_m = sgm.vertical_sweeps_wta(cost, acc, p, True)
+    assert sgm.vertical_packed_launches == n + 1
+    want, want_m = sgm.vertical_sweeps_wta_plain(cost, acc, p, True)
+    torch.cuda.synchronize(device)
+    assert torch.equal(got >= min_d, want >= min_d), \
+        f"{what}: validity differs"
+    err = (got - want).abs().max().item()
+    assert torch.equal(got, want), f"{what}: max |err| {err}"
+    assert torch.equal(got_m, want_m), f"{what}: margin differs"
 
 
 def check_b2(device, b, h, w, d, paths, seed=9) -> None:

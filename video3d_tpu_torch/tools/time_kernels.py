@@ -1,4 +1,4 @@
-"""Times of kernels B2, B8c, B4, B8a, B8b, I1 and P over batch sizes.
+"""Times of kernels B2, B3, B8c, B4, B8a, B8b, I1 and P over batch sizes.
 
 What ``chip_smoke.py`` does not time: B2 (both horizontal sweeps, int16
 and f32 accumulator), B8c (both W-major horizontal sweeps on the
@@ -20,7 +20,9 @@ of ``probe_all`` where the tree has it, event and device time a call); I1
 (the stage's split, 2x unsqueeze and gray in one launch, gray only and
 with the RGB eyes) beside the plain twin, the dense f32 product the stage
 ran before, and that product alone, in CUDA events and device time a
-frame, with the byte bound.
+frame, with the byte bound; B3 (``vertical_sweeps_wta`` at 5 paths,
+int16 accumulator, and 8, f32) in CUDA events and device time a frame,
+with its route where the tree has ``vertical_route``.
 ``digest`` prints a SHA-256 of the outputs of B1-B4 (the int16 cost, B2's
 sums at 5 and 8 paths, B3's disparity and margin, B4's map) instead of a
 time, to show that two trees give the same bits. Prints the card's name
@@ -30,7 +32,7 @@ needs a tree with I1), so ``PYTHONPATH=<other tree> python <this file> b8a
 b8b p digest 2`` runs another checkout's kernels in the same call.
 
 Usage: ``python -m video3d_tpu_torch.tools.time_kernels [kernel ...]
-[batch ...]`` on a CUDA card; kernels are ``b2``, ``b8c``, ``b4``,
+[batch ...]`` on a CUDA card; kernels are ``b2``, ``b3``, ``b8c``, ``b4``,
 ``b8a``, ``b8b``, ``i1``, ``p`` and ``digest`` (default: all but
 ``digest``),
 batches default to 1, 2, 4 and 8.
@@ -104,7 +106,7 @@ def _dev(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f}"
 
 
-KERNELS = ("b2", "b8c", "b4", "b8a", "b8b", "i1", "p", "digest")
+KERNELS = ("b2", "b3", "b8c", "b4", "b8a", "b8b", "i1", "p", "digest")
 
 
 def main(argv=None) -> int:
@@ -126,8 +128,8 @@ def main(argv=None) -> int:
     p = SGBMParams()
     if "p" in kernels:
         probe()
-    timers = {"b2": b2, "b8a": b8a, "b8c": b8c, "b4": b4, "b8b": b8b,
-              "digest": digest}
+    timers = {"b2": b2, "b3": b3, "b8a": b8a, "b8c": b8c, "b4": b4,
+              "b8b": b8b, "digest": digest}
     for nb in batches or [1, 2, 4, 8]:
         frames = torch.from_numpy(sbs_batch(nb)).to("cuda")
         if "i1" in kernels:
@@ -179,6 +181,21 @@ def b2(cost, p, nb: int) -> None:
         ms = cuda_ms(lambda: sgm.horizontal_sweeps(cost, pp)) / nb
         print(f"B2 {name} acc, batch {nb}: {ms:.4f} ms/frame; blocks "
               f"per SM, SMs, blocks, rounds = {sgm.horizontal_plan}")
+
+
+def b3(cost, p, nb: int) -> None:
+    """B3 at 5 paths (int16 accumulator) and 8 (f32), on its scratch copy
+    of B2's sums (the 8-path launches add into it)."""
+    route = getattr(sgm, "vertical_route", None)
+    for name, pp in (("5 paths", p), ("8 paths", p.replace(num_paths=8))):
+        acc = sgm.horizontal_sweeps(cost, pp)
+        ms = cuda_ms(lambda: sgm.vertical_sweeps_wta(cost, acc, pp)) / nb
+        dev = device_ms(lambda: sgm.vertical_sweeps_wta(cost, acc, pp))
+        print(f"B3 {name}, batch {nb}: {ms:.4f} ms/frame, device "
+              f"{_dev(None if dev is None else dev / nb)}; route "
+              f"{route(cost.dtype, pp) if route else 'int32'}; plan "
+              f"{sgm.vertical_plan}")
+        del acc
 
 
 def b8a(cost, p, nb: int) -> None:
