@@ -71,10 +71,12 @@ def test_port_is_jax_free_and_params_pinned():
         text=True, timeout=60)
     assert blocked.returncode != 0  # the block itself works
     # imports inside functions run only when called: read every import
-    # statement of the port and of chip_smoke.py
+    # statement of the port, of chip_smoke.py and of the card tests, which
+    # run on a machine without jax
     import ast
 
-    for path in [REPO / "chip_smoke.py",
+    for path in [REPO / "chip_smoke.py", REPO / "tests/test_torch_card.py",
+                 REPO / "tests/test_torch_card_paths.py",
                  *(REPO / "video3d_tpu_torch").rglob("*.py")]:
         for node in ast.walk(ast.parse(path.read_text())):
             names = ([a.name for a in node.names]

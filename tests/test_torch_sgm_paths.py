@@ -22,6 +22,7 @@ from video3d_tpu.kernels.sgm import (sgm_aggregate_pallas,
 from video3d_tpu.ops import stereo as jstereo
 from video3d_tpu_torch import kernels as tkernels
 from video3d_tpu_torch.kernels import costvol, sgm
+from video3d_tpu_torch.kernels.image import eyes_gray
 from video3d_tpu_torch.ops import stereo
 from video3d_tpu_torch.stages import depth as tdepth
 
@@ -204,7 +205,7 @@ def test_extractor_modes_match_tpu_path(tmp_path, paths):
     assert ext._run_batches([(frames, 2)], tmp_path / "maps") == 2
     maps = np.stack([load_depth_png16(f)
                      for f in list_depth_frames(tmp_path / "maps")])
-    gl, gr = tdepth.gray_pair(torch.from_numpy(frames), unsqueeze=False)
+    gl, gr = eyes_gray(torch.from_numpy(frames), False)[:2]
     want = tdepth.disparity_to_uint16(stereo.sgbm_disparity(gl, gr, p), ND)
     np.testing.assert_array_equal(maps, want.numpy())
     assert (maps > 0).mean() > 0.3

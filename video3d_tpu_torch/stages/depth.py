@@ -61,13 +61,6 @@ BACKEND = "torch"
 STEREO_WEIGHT = 0.7
 
 
-def gray_pair(frames: torch.Tensor, unsqueeze: bool = True):
-    """uint8 SBS RGB batch (B, H, W, 3) -> contiguous f32 gray eyes
-    (B, H, W') each: the split, optional 2x Lanczos-4 unsqueeze and BT.601
-    of :func:`video3d_tpu_torch.kernels.image.eyes_gray`."""
-    return image_kernel.eyes_gray(frames, unsqueeze)[:2]
-
-
 def confidence_trust_blend(disp: torch.Tensor, margin: torch.Tensor,
                            guide: torch.Tensor, *,
                            min_disparity: float = 0.0,

@@ -1,49 +1,32 @@
-"""Small-shape checks of kernels B1-B6, B8a-c, I1 and P against their plain
-twins.
+"""Every CUDA kernel of the port against its plain twin: one case list and
+one ``check_*`` function a kernel, run on the card by
+``tests/test_torch_card.py``; a function raises ``AssertionError`` on a
+mismatch.
 
-The shapes stress what the 1080p run at D = 64 does not: widths that are
-no multiple of a block's strip of columns, heights shorter than B1's ring
-of rows and no multiple of one of its segments, disparity counts from one
-lane-run to four (and ones no vector width divides), a non-zero
-``min_disparity``, other block sizes, batches of 1 and 3 (and of enough
-small frames that B3 picks its wider blocks), and for B3 every mode (2, 4,
-5 and 8 paths) with and without the margin; B3's packed route
-(``B3_PACKED_CASES``) also random and extreme costs, the largest P2 it
-admits and a 1080p batch of 8, bit-equal to the int32 route and the twin. B2 runs B3's shapes (and
-widths below and around twice its ring of pixels) with the int16 and the
-f32 accumulator; B4 widths and heights off its strip and segment sizes and
-below its window, 2 to 9 bands and one band a disparity (both counting
-schemes), ``min_region`` from 1 to 400. B6's level step walks the
-pyramid of guides from 5x7 to 540x960 at 3 and 4 levels (``r_lvl`` 3 to
-9, coarse sizes odd and even, 2x2 levels whose upsample is the
-identity); B5's EMA step runs guides from 5x7 to 540x960 at 2x and 4x
-(and a non-integer ratio), ``max_warp`` 8 and 16, the depth gate on and
-off; both must give the same bits on a second run. B8c runs its
-two-direction entry and its one-direction entry (forward and reverse, with
-and without an accumulator to add to) at D from 16 to 128 (one lane-run
-to four, and ones no run divides), image rows HL from 1 to 1152 (no
-multiple of a tile, and ones no 16-byte copy divides), widths from 1 to
-257 (below and around twice its ring of positions), batches of 1 and 3,
-and all three type pairs, the f32 cost non-integer; each case bit-equal
-to the twin and to a second run. B8a (``sgm_aggregate_pallas``) runs 2, 4,
-5 and 8 paths on f32 and bf16 non-integer costs, whole and non-integer
-penalties (one pair not exact in f32), D from 1 to 128 (57 and 40: no
-multiple of a lane's run), widths 1 to 257, heights 1 to 137, and batches
-that make the 3-direction launch take 32-warp blocks or run in two
-chunks; each case bit-equal to the twin and to a second run. B8b runs
-the CPU emulation's shapes (``tests/test_torch_transpose.py``): heights
-with padding rows and without (H = HP = 128), widths 1 to 257, D 1 to 128
-(rows of no multiple of 16 bytes), int16 and f32, from 16-byte aligned
-storage and from storage one element past it (the element-by-element
-path); each way bit-equal to the twin and to a second run, the inverse
-from a W-major volume whose padding rows hold garbage. P runs all six ops
-in one launch and each op alone at ragged shapes (n and the last axis no
-multiple of 8, rows shorter than the select's 4 columns), aligned and
-not, bit-equal to the torch expressions. I1 runs the stage's half- and
-full-SBS 1080p batches, batch 1 and ragged widths (``I1_CASES``) against
-the dense product within 1e-3. ``chip_smoke.py``
-and ``tests/test_torch_card.py`` both run them on the card; the functions
-raise ``AssertionError`` on a mismatch.
+A list holds the shapes that stress what the main path does not, then the
+main path's own, appended (the CPU tests slice the first cases of
+``FLOW_LEVEL_CASES`` and ``EMA_CASES``): 1080p half-SBS eyes (1920 wide
+after the unsqueeze) at D = 64 and batches 2 and 8 for B1-B4 (5 paths: the
+int16 accumulator and B3's packed route; 8: the f32 one), I1 and B8a-c;
+DPT-large's attention for B7; the flow path's planes for B5 and B6. The
+others: widths off a block's strip of columns, heights off B1's ring and
+segments, D from one lane-run to four and ones no vector width divides,
+``min_disparity`` 3, other blocks, batches that make B3 and B8a take their
+wider blocks or run in two chunks, every SGM mode with and without the
+margin, B3's packed route on random and extreme costs and the largest P2
+it admits, B4 from 2 bands to one a disparity (both counting schemes), B7
+sequence lengths off its 64-key tile, B6's level step along whole
+pyramids and B5's EMA step with the gate on and off, B8c's entries on all
+three type pairs up to the W-major route's padded rows, B8b and P from
+aligned storage and from storage one element past it. Beyond the twin:
+B8a's launches a call are those of its plan and of a ``torch.profiler``
+trace; B8c's two-direction entry on an int16 cost equals its
+one-direction pair and B2's sums; B8b equals the permute; B5's EMA step,
+B6's level step, B8a-c and I1 give the same bits on a second run.
+
+The frames, planes and traces that these checks, the path tests of
+``tests/test_torch_card_paths.py`` and ``time_kernels`` share live here
+too: ``sbs_batch``, ``smooth_plane`` and ``profile_kernels``.
 """
 
 from __future__ import annotations
@@ -51,13 +34,52 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from video3d_tpu_torch.kernels import (costvol, flowmatch, image, sgm,
-                                       speckle, warp, wmajor)
+from video3d_tpu_torch.kernels import (attention, costvol, flowmatch, image,
+                                       sgm, speckle, warp, wmajor)
 from video3d_tpu_torch.ops import flow, stereo
+from video3d_tpu_torch.ops.attention import attention_plain
 from video3d_tpu_torch.ops.image import eyes_gray_plain, resize2d
 from video3d_tpu_torch.ops.speckle import speckle_filter_device
 from video3d_tpu_torch.ops.stereo import SGBMParams, sgm_aggregate
 from video3d_tpu_torch.tools import probe_i16
+
+
+def sbs_batch(n: int, seed: int = 0, h: int = 1080, w_eye: int = 960,
+              shift: int = 8) -> np.ndarray:
+    """(n, h, 2 * w_eye, 3) uint8 SBS frames of random 2-pixel-grain
+    texture; the right eye is the left shifted left by ``shift``. The card
+    tests' stereo, hybrid and MODE_HH frames are these too, and the
+    frames ``time_kernels`` times."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 256, (n, -(-h // 2), (w_eye + shift) // 2 + 1, 3),
+                        dtype=np.uint8)
+    base = np.repeat(np.repeat(base, 2, axis=1), 2, axis=2)
+    base = base[:, :h, :w_eye + shift]
+    return np.ascontiguousarray(np.concatenate(
+        [base[:, :, :w_eye], base[:, :, shift:shift + w_eye]], axis=2))
+
+
+def profile_kernels(fn, reps: int = 10):
+    """(device operations per call, {name: (launches per call, device ms
+    per call)}) from a ``torch.profiler`` trace of ``reps`` calls of ``fn``
+    after a warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    per = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n, us = per.get(e.name, (0, 0.0))
+            per[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    return (sum(n for n, _ in per.values()) / reps,
+            {k: (n / reps, us / 1e3 / reps) for k, (n, us) in per.items()})
+
 
 # (batch, height, width, num_disparities, min_disparity, block_size)
 B1_CASES = [
@@ -73,6 +95,8 @@ B1_CASES = [
     (1, 5, 70, 16, 0, 7),   # fewer rows than the ring holds
     (3, 2, 33, 16, 0, 3),
     (1, 70, 257, 64, 0, 9),
+    (2, 1080, 1920, 64, 0, 5),
+    (8, 1080, 1920, 64, 0, 5),
 ]
 
 # (batch, height, width, num_disparities, min_disparity)
@@ -93,7 +117,8 @@ B3_SHAPES = [
     (31, 9, 257, 64, 0),
 ]
 B3_CASES = [shape + (paths, margin) for shape in B3_SHAPES
-            for paths in (2, 4, 5, 8) for margin in (False, True)]
+            for paths in (2, 4, 5, 8) for margin in (False, True)] + [
+    (b, 1080, 1920, 64, 0, paths, True) for b in (2, 8) for paths in (5, 8)]
 
 # B3's packed route (``sgm.vertical_route`` "packed"): (batch, height,
 # width, num_disparities, min_disparity, p2, fill of the cost: B1's on a
@@ -123,7 +148,7 @@ B3_PACKED_CASES = [
 B2_SHAPES = [shape[:4] for shape in B3_SHAPES] + [
     (1, 3, 1, 16), (2, 3, 2, 64), (1, 5, 7, 64), (1, 5, 16, 35),
     (3, 5, 17, 128), (1, 5, 24, 70), (1, 5, 33, 64), (40, 540, 70, 16),
-    (12, 1080, 40, 64),
+    (12, 1080, 40, 64), (2, 1080, 1920, 64), (8, 1080, 1920, 64),
 ]
 B2_CASES = [shape + (paths,) for shape in B2_SHAPES for paths in (5, 8)]
 
@@ -148,6 +173,8 @@ B4_CASES = [
     (1, 70, 130, 100, 32.0, "invalid"),
     (1, 70, 130, 9, 8.0, "valid"),
     (1, 70, 130, 9, 8.0, "invalid"),
+    (2, 1080, 1920, 100, 32.0, "random"),
+    (8, 1080, 1920, 100, 32.0, "random"),
 ]
 
 
@@ -180,6 +207,13 @@ B8C_CASES = [
     (1, 48, 7, 1152, "i16/f32", "fwd+acc"),
     (3, 32, 8, 70, "f32/f32", "rev+acc"),
     (1, 128, 257, 40, "i16/i16", "fwd+acc"),
+] + [(2, 64, 90, 70, t, e) for t in ("i16/i16", "i16/f32", "f32/f32")
+     for e in ("fwd+acc", "rev+acc")] + [
+    (2, 64, 1920, 1080, "i16/i16", "both"),    # the xla route's rows
+    (2, 64, 1920, 1080, "i16/f32", "both"),
+    (2, 64, 1920, 1152, "i16/i16", "both"),    # the mxu route's
+    (2, 64, 1920, 1080, "i16/i16", "fwd"),
+    (2, 64, 1920, 1080, "i16/i16", "rev+acc"),
 ]
 _B8C_TYPES = {"i16": torch.int16, "f32": torch.float32}
 
@@ -206,7 +240,9 @@ B8A_CASES = [(2, 30, 70, 40, paths, t, 6.0, 24.0)
     (26, 9, 257, 64, 8, "f32", 6.5, 24.25),
     (40, 9, 257, 64, 8, "f32", 6.5, 24.25),
     (40, 9, 257, 64, 5, "bf16", 6.5, 24.25),
-]
+] + [(2, 1080, 1920, 64, paths, t, 200.0, 800.0)
+     for paths, t in ((8, "f32"), (8, "bf16"), (5, "f32"), (5, "bf16"),
+                      (4, "f32"), (2, "f32"))]
 _B8A_TYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 # (batch, height, width, num_disparities), each run in int16 and f32
@@ -225,6 +261,8 @@ B8B_CASES = [
     (1, 128, 3, 1),
     (1, 130, 90, 17),
     (1, 64, 1, 128),
+    (2, 70, 90, 40),
+    (2, 1080, 1920, 64),  # the stage's volume, HP = 1152
 ]
 
 # shapes of the probe's inputs: n and the last axis no multiple of 8, rows
@@ -240,7 +278,21 @@ P_CASES = [(3, 5, 7), (1,), (2, 3, 9), (5, 13), (4, 3), (17,), (2, 1000),
 I1_CASES = [(8, 1080, 1920, True), (8, 1080, 3840, False),
             (1, 1080, 1920, True), (1, 1080, 3840, False),
             (3, 37, 258, True), (3, 37, 258, False), (2, 5, 14, True),
-            (2, 3, 6, False), (1, 1, 2, True)]
+            (2, 3, 6, False), (1, 1, 2, True), (2, 1080, 1920, True)]
+
+# B5's public warp: (height, width, r): the finest flow level at
+# flow_scale 4 (r = 4 + search), others, and the full-resolution depth warp
+B5_CASES = [(270, 480, 6), (37, 53, 4), (540, 960, 16), (1080, 1920, 16)]
+
+# B6's public match: (height, width), the finest flow level at flow_scale 4
+B6_CASES = [(270, 480), (37, 53), (5, 7)]
+
+# B7a and B7b: (batch, heads, sequence, head dim, dtype); 577 (DPT-large's
+# tokens at two keyframes and at the K=1 hybrid's eight), 77, 130 and 1500
+# are no multiple of the kernel's 64-key tile
+B7_CASES = [shape + (t,) for t in ("f32", "bf16") for shape in (
+    (2, 3, 77, 32), (1, 6, 130, 16), (2, 16, 577, 64), (1, 4, 1500, 32),
+    (8, 16, 577, 64))]
 
 
 def _at_offset(x: torch.Tensor, offset: int) -> torch.Tensor:
@@ -474,6 +526,18 @@ def check_b8c(device, b, d, w, hl, types, entry, seed=13) -> None:
     assert torch.equal(got, again), f"{what}: runs differ"
     err = (got.double() - want.double()).abs().max().item()
     assert torch.equal(got, want), f"{what}: max |err| {err}"
+    if entry == "both" and cost_dt == torch.int16:
+        # whole sums: the order of the two directions' adds is immaterial
+        pair = wmajor.wmajor_sweep(cost, wmajor.wmajor_sweep(
+            cost, None, p1, p2, False, acc_dt), p1, p2, True)
+        assert torch.equal(got, pair), \
+            f"{what}: differs from the two one-direction sweeps"
+        b2 = sgm.horizontal_sweeps(cost.permute(0, 3, 2, 1).contiguous(),
+                                   SGBMParams(num_disparities=d, p1=p1, p2=p2,
+                                              num_paths=8 if acc_dt ==
+                                              torch.float32 else 5))
+        assert torch.equal(got.permute(0, 3, 2, 1), b2), \
+            f"{what}: differs from B2's sums"
 
 
 def check_b8a(device, b, h, w, d, paths, cost_type, p1, p2, seed=14) -> None:
@@ -486,6 +550,17 @@ def check_b8a(device, b, h, w, d, paths, cost_type, p1, p2, seed=14) -> None:
     got = sgm.sgm_aggregate_pallas(cost, paths, p1, p2)
     again = sgm.sgm_aggregate_pallas(cost, paths, p1, p2)
     assert sgm.aggregate_launches == n + 2
+    n_call, steps = sgm.aggregate_plan
+    assert steps == {2: 0, 5: 1}.get(paths, 2), sgm.aggregate_plan
+    for _ in range(3):  # a trace with no device event at all was lost
+        # (seen on the card): trace again; one with events is counted
+        _, per = profile_kernels(
+            lambda: sgm.sgm_aggregate_pallas(cost, paths, p1, p2), 5)
+        if per:
+            break
+    n_dev = sum(n for name, (n, _) in per.items() if "horizontal_kernel"
+                in name or "vertical_kernel" in name)
+    assert round(n_dev) == n_call, (n_dev, sgm.aggregate_plan)
     want = sgm_aggregate(cost, SGBMParams(num_paths=paths, p1=p1, p2=p2))
     torch.cuda.synchronize(device)
     what = f"B8a at {(b, h, w, d)}, {paths} paths, {cost_type}, {p1}/{p2}"
@@ -527,6 +602,8 @@ def check_b8b(device, b, h, w, d, types, seed=15) -> None:
             f"{where}: runs differ"
         assert torch.equal(t, want), \
             f"{where}: to differs in {int((t != want).sum().item())} elements"
+        assert torch.equal(t[..., :h], x.permute(0, 3, 2, 1)), \
+            f"{where}: differs from the permute"
         assert torch.equal(back, x), \
             f"{where}: from differs in {int((back != x).sum().item())} " \
             f"elements"
@@ -661,3 +738,70 @@ def check_ema_tail(device, h, w, hq, wq, max_warp, gain_d, seed=12) -> None:
     assert torch.equal(got, again), f"{what}: runs differ"
     err = (got - want).abs().max().item()
     assert err <= 1e-4, f"{what}: max |err| {err}"
+
+
+def _uniform(seed, lo, hi, shape, device):
+    r = np.random.default_rng(seed)
+    return torch.from_numpy(r.uniform(lo, hi, shape).astype(np.float32)).to(
+        device)
+
+
+def check_b5(device, h, w, r) -> None:
+    """B5's public warp, one launch, within 1e-5 of its twin on a
+    unit-scale image, the flow past the clamp on purpose: both sides must
+    clamp to [-r, r]."""
+    img = torch.from_numpy(np.random.default_rng(21).standard_normal(
+        (h, w)).astype(np.float32)).to(device)
+    fy = _uniform(22, -r - 1, r + 1, (h, w), device)
+    fx = _uniform(23, -r - 1, r + 1, (h, w), device)
+    n = warp.launches
+    got = warp.warp_bilinear_shifts(img, fy, fx, r)
+    assert warp.launches == n + 1
+    want = flow.warp_bilinear_shifts_plain(img, fy, fx, r)
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5, f"B5 at {(h, w)} r={r}: max |err| {err}"
+
+
+def check_b6(device, h, w) -> None:
+    """B6's public match, one launch, within 2e-4 px of its twin on
+    band-limited textures (gradient everywhere to match)."""
+    import scipy.ndimage as ndi
+
+    def texture(seed):
+        t = ndi.gaussian_filter(np.random.default_rng(seed).standard_normal(
+            (h, w)), 2.0)
+        t = (t - t.min()) / (np.ptp(t) + 1e-9)
+        return torch.from_numpy((t * 255.0).astype(np.float32)).to(device)
+
+    args = (texture(3), texture(4), _uniform(5, -3, 3, (h, w), device),
+            _uniform(6, -3, 3, (h, w), device))
+    n = flowmatch.launches
+    got = flowmatch.flow_match(*args, search=2, radius=3, tau=2.0)
+    assert flowmatch.launches == n + 1
+    want = flow.flow_match_plain(*args, search=2, radius=3, tau=2.0)
+    for g, wv in zip(got, want):
+        err = (g - wv).abs().max().item()
+        assert err <= 2e-4, f"B6 at {(h, w)}: max |err| {err} px"
+
+
+def check_b7(device, b, heads, s, d, dtype, seed=5) -> None:
+    """B7a and B7b, one launch each, against their twin: within 1e-5 in
+    f32; in bf16 within 2^-7 |twin| + 2^-10 (about one bf16 ulp) on at
+    least 99.9% of the outputs."""
+    r = np.random.default_rng(seed)
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    q, k, v = (torch.from_numpy(r.standard_normal((b, heads, s, d)).astype(
+        np.float32)).to(device, dt) for _ in range(3))
+    sm = 1.0 / d ** 0.5
+    want = attention_plain(q, k, v, sm).float()
+    n = attention.launches
+    for name, fn in (("B7a", attention.attention_multihead),
+                     ("B7b", attention.attention_oneblock)):
+        err = (fn(q, k, v, sm).float() - want).abs()
+        what = f"{name} at {(b, heads, s, d)} {dtype}"
+        if dt == torch.float32:
+            assert err.max().item() <= 1e-5, f"{what}: {err.max().item()}"
+        else:
+            frac = (err <= 2.0 ** -7 * want.abs() + 2.0 ** -10).float()
+            assert frac.mean().item() >= 0.999, f"{what}: {frac.mean()}"
+    assert attention.launches == n + 2
