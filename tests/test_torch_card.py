@@ -13,7 +13,10 @@ the flow path's planes), one test a case, through its ``check_*``
 function. Gates: B1, B2, B4, B8a-c, P and B3's packed route bit-exact; B3
 identical validity, disparity within 1e-5, margin within rtol 1e-6; B5
 1e-5 (its EMA step 1e-4 on unit-scale depth); B6 2e-4 px, its level step
-too; B7 1e-5 in f32 and one bf16 ulp on >= 99.9% of the outputs; I1 1e-3.
+too; B7 1e-5 in f32 and one bf16 ulp on >= 99.9% of the outputs; I1 1e-3;
+F1's fill bit-exact, its statistics and F2's blend within 1e-3 px on >=
+99.9% of the pixels and 1 px on all (sums in another order can flip the
+trust gate at a few pixels), the same bits on a second run.
 The depth stage's spans (``core/trace.py``) are held to the device
 trace's clock on a 1080p batch of the CREStereo hybrid.
 """
@@ -115,6 +118,11 @@ def test_p_cases_match_torch(dev, shape):
 @pytest.mark.parametrize("case", card_checks.I1_CASES, ids=str)
 def test_i1_matches_twin(dev, case):
     card_checks.check_i1(dev, *case)
+
+
+@pytest.mark.parametrize("case", card_checks.FB_CASES, ids=str)
+def test_fill_blend_matches_twin(dev, case):
+    card_checks.check_fill_blend(dev, *case)
 
 
 def _stage_frames(dev, b=2, h=40, w=160, seed=21):

@@ -28,14 +28,15 @@ import torch
 import video3d_tpu_torch.kernels as kernels_api
 from video3d_tpu_torch.core import (VideoWriter, list_depth_frames,
                                     load_depth_png16)
-from video3d_tpu_torch.kernels import (attention, costvol, flowmatch, image,
-                                       sgm, speckle, warp, wmajor)
+from video3d_tpu_torch.kernels import (attention, blend, costvol, flowmatch,
+                                       image, sgm, speckle, warp, wmajor)
 from video3d_tpu_torch.ops.fill import fill_holes
 from video3d_tpu_torch.ops.image import (eyes_gray_plain, resize2d, rgb_eyes,
                                          rgb_to_gray)
 from video3d_tpu_torch.ops.speckle import speckle_filter_device
 from video3d_tpu_torch.ops.stereo import INVALID, SGBMParams, sgbm_disparity
 from video3d_tpu_torch.stages.depth import (StereoDepthExtractor,
+                                            blend_plain,
                                             depth_batch_pipeline,
                                             disparity_to_uint16,
                                             guidance_blend)
@@ -57,7 +58,7 @@ COUNTERS = {  # kernel -> (wrapper module, its launch count)
     "B7": (attention, "launches"), "B8a": (sgm, "aggregate_launches"),
     "B8b": (wmajor, "transpose_launches"),
     "B8c": (wmajor, "sweep_launches"), "P": (probe_i16, "launches"),
-    "I1": (image, "launches"),
+    "I1": (image, "launches"), "F": (blend, "launches"),
 }
 
 
@@ -124,8 +125,9 @@ def dpt_checkpoint(device):
 
 @contextlib.contextmanager
 def twins():
-    """Swap the wrappers of B1-B4, B7 and I1 for their plain twins, so the
-    stage's own code runs on the card with no CUDA kernel of the port."""
+    """Swap the wrappers of B1-B4, B7, I1, F1 and F2 for their plain twins,
+    so the stage's own code runs on the card with no CUDA kernel of the
+    port."""
     from video3d_tpu_torch.ops.attention import attention_plain
 
     swaps = (
@@ -137,6 +139,11 @@ def twins():
         (attention, "attention_multihead",
          lambda q, k, v, sm_scale, heads_per_step=8:
          attention_plain(q, k, v, sm_scale)),
+        (blend, "fill_holes", fill_holes),
+        (blend, "trust_blend",
+         lambda disp, margin, out, every, stereo, nd, md: blend_plain(
+             disp, margin, out, every, stereo,
+             SGBMParams(num_disparities=nd, min_disparity=int(md)))),
     )
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     try:
@@ -211,11 +218,32 @@ def b7_calls():
         attention.attention_multihead = fn
 
 
+def fused_stage(x0, gfn, kev) -> tuple:
+    """(F launches, ``stage.blend``'s ``fused`` count) of one guided stage
+    call with the fill, its spans recorded under a CPU profile."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from video3d_tpu_torch.core import trace
+
+    n = blend.launches
+    trace.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            depth_batch_pipeline(x0, guidance_fn=gfn, guidance_every=kev,
+                                 fill_holes=True)
+        fused = trace.summary()["stage.blend"]["counts"]["fused"]
+    finally:
+        trace.reset()
+    return blend.launches - n, fused
+
+
 def check_guided_batch(x0, gfn, maps8, kev) -> tuple:
     """A guided batch at K = ``kev`` step by step on the kernels (no hole
     left in a row with a valid pixel, a finite blend, the run's maps within
-    1 unit), then with every kernel swapped for its twin (no launch; >= 99%
-    of the pixels within 64 units, 1/16 px). Returns (left, right) eyes."""
+    1 unit; one stage call through F1 and F2, every frame counted
+    ``fused``), then with every kernel swapped for its twin (no launch; >=
+    99% of the pixels within 64 units, 1/16 px). Returns (left, right)
+    eyes."""
     left, right = rgb_eyes(x0)
     disp, conf = sgbm_disparity(rgb_to_gray(left).contiguous(),
                                 rgb_to_gray(right).contiguous(), P,
@@ -229,6 +257,8 @@ def check_guided_batch(x0, gfn, maps8, kev) -> tuple:
     assert bool(torch.isfinite(blended).all()), "blend not finite"
     step = as_int(disparity_to_uint16(blended, P.num_disparities))
     assert int(np.abs(step - maps8.astype(np.int32)).max()) <= 1
+    n_f = 1 + (2 if getattr(gfn, "stereo", False) else 3)
+    assert fused_stage(x0, gfn, kev) == (n_f, x0.shape[0])
     with twins():
         counts(reset=True)
         tmaps = as_int(depth_batch_pipeline(
@@ -320,9 +350,11 @@ def test_dpt_hybrid_path(dev, tmp_path, kev):
     with b7_calls() as calls:
         n = run_stage(ext, batches, tmp_path / "depth")
     c = counts()
-    launches = [c[k] for k in ("B1", "B2", "B3", "B4", "B5", "B6", "B7")]
+    launches = [c[k] for k in ("B1", "B2", "B3", "B4", "B5", "B6", "B7",
+                               "F")]
     assert n == 16
-    assert launches == [2, 2, 2, 2, 0, 0, 2 * 24], launches  # 24 B7 a batch
+    # 24 B7 a batch; F1's fill, statistics and agreement, then F2
+    assert launches == [2, 2, 2, 2, 0, 0, 2 * 24, 2 * 4], launches
     assert calls == [((8 // kev, 16, 577, 64), torch.bfloat16)] * 48, \
         sorted(set(calls), key=str)
     maps = read_maps(tmp_path / "depth", n)
@@ -438,8 +470,9 @@ def test_crestereo_default_path(crestereo_runs, kev):
         and ext.model_checkpoint == str(BUNDLED_WEIGHTS), \
         f"the run degraded to {ext.guidance} from {ext.model_checkpoint}"
     assert run["n"] == 16
-    assert [c[k] for k in ("B1", "B2", "B3", "B4", "B5", "B6", "B7")] == \
-        [2, 2, 2, 2, 0, 0, 0], c
+    # F1's fill and statistics, then F2, a batch
+    assert [c[k] for k in ("B1", "B2", "B3", "B4", "B5", "B6", "B7",
+                           "F")] == [2, 2, 2, 2, 0, 0, 0, 2 * 3], c
     assert run["forwards"] == [8 // kev] * 2, \
         f"not one forward of {8 // kev} keyframes a batch: {run['forwards']}"
     assert c["I1"] == 2, "I1 is not one launch a batch"

@@ -74,6 +74,11 @@ Every TPU kernel of the JAX package (each function reaching
 
 ``sgm_aggregate_pallas_dmajor`` (kernels/sgm.py:1018) only calls B2; the
 port's is a wrapper around B8a's.
+
+Kernels of the port that replace no TPU kernel: I1 (``csrc/image.cu``,
+``image.py``: the eyes' split, unsqueeze and gray, a dense product in the
+JAX stage) and F1, F2 (``csrc/blend.cu``, ``blend.py``: the hole fill and
+the confidence-trust blend after the guide, plain jnp in the JAX package).
 """
 
 from video3d_tpu_torch.kernels.sgm import sgm_aggregate_pallas

@@ -72,6 +72,11 @@ _SIGNATURES = {
     "v3d_eyes_gray": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # attention.cu
     "v3d_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # blend.cu
+    "v3d_fill_holes": [_P, _P, _I, _I, _I, _F, _P],
+    "v3d_blend_scratch": [_I, _I],
+    "v3d_trust_blend": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
+                        _P],
 }
 
 _lib = None

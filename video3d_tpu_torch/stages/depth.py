@@ -4,9 +4,10 @@ Per batch, on one device: SBS split, 2x Lanczos-4 unsqueeze and BT.601
 gray (one CUDA kernel on a card, :mod:`video3d_tpu_torch.kernels.image`),
 the semi-global matcher (:func:`video3d_tpu_torch.ops.stereo.
 sgbm_disparity` in any of its modes and horizontal routes, whose kernels
-run on a CUDA device), the optional background-extension hole fill, the
-optional neural guidance blend, clamp of invalid pixels to 0, fixed-range
-or per-frame normalisation, uint16 out. Host I/O -- decode, PNG16
+run on a CUDA device), the optional background-extension hole fill and
+the optional neural guidance blend (kernels F1 and F2 on a card,
+:mod:`video3d_tpu_torch.kernels.blend`), clamp of invalid pixels to 0,
+fixed-range or per-frame normalisation, uint16 out. Host I/O -- decode, PNG16
 writing, cache keys -- is the port's own :mod:`video3d_tpu_torch.core`.
 
 Guidance, on every Kth frame of a batch: ``guidance='crestereo'`` (the
@@ -38,12 +39,12 @@ from video3d_tpu_torch.core import (DepthMapWriter, VideoReader,
                                     create_work_directory, depth_cache_dir,
                                     get_video_info, is_depth_cached_range)
 from video3d_tpu_torch.core.trace import span
+from video3d_tpu_torch.kernels import blend as blend_kernel
 from video3d_tpu_torch.kernels import image as image_kernel
 from video3d_tpu_torch.models.crestereo import (BUNDLED_WEIGHTS,
                                                 load_crestereo_guidance)
 from video3d_tpu_torch.models.mono import ssi_align
 from video3d_tpu_torch.ops.boxsum import box_sum_2d
-from video3d_tpu_torch.ops.fill import fill_holes as fill_holes_op
 from video3d_tpu_torch.ops.flow import FlowEMAParams
 from video3d_tpu_torch.ops.image import resize2d
 from video3d_tpu_torch.ops.stereo import (HORIZONTAL_ROUTES, SGBMParams,
@@ -133,6 +134,13 @@ def guidance_blend(disp: torch.Tensor, margin: Optional[torch.Tensor],
     ``confidence`` mixes by :func:`confidence_trust_blend` (``margin`` is
     the matcher's confidence); ``fixed`` is
     ``stereo_weight * disp + (1 - stereo_weight) * guide``.
+
+    On a card the confidence blend at ``trust_scale`` 1 runs in kernels F1
+    and F2 (:func:`video3d_tpu_torch.kernels.blend.trust_blend`), which
+    read keyframe i // K for frame i; :func:`blend_plain` is their twin,
+    and the path of ``fixed`` and of ``trust_scale`` 2 and 4. The span
+    ``stage.blend`` counts the frames that went through the kernels
+    (``fused``).
     """
     kev = max(1, int(guidance_every))
     b = left.shape[0]
@@ -140,30 +148,50 @@ def guidance_blend(disp: torch.Tensor, margin: Optional[torch.Tensor],
     with span("guide.forward", left, keyframes=-(-b // kev)):
         out = guidance_fn(*(e[::kev] for e in
                             ((left, right) if stereo else (left,))))
-    with span("stage.blend", left):
-        out = out.repeat_interleave(kev, dim=0)[:b] if kev > 1 else out
-        if stereo:
-            guide = out
-        else:
-            mono = out
-            dims = (-2, -1)
-            mmin = mono.amin(dim=dims, keepdim=True)
-            mmax = mono.amax(dim=dims, keepdim=True)
-            guide = ((mono - mmin) / torch.clamp(mmax - mmin, min=1e-6)
-                     * float(params.num_disparities))
-            if blend == "confidence":
-                conf_w = torch.where(
-                    disp > float(params.min_disparity) - 0.5, margin, 0.0)
-                s, t = ssi_align(mono, torch.clamp(disp, min=0.0), conf_w)
-                g_ssi = torch.clamp(mono * s + t, 0.0,
-                                    float(params.num_disparities))
-                guide = torch.where(s > 0.0, g_ssi, guide)
+    fused = b if (disp.is_cuda and blend == "confidence"
+                  and trust_scale == 1) else 0
+    with span("stage.blend", left, fused=fused):
+        if fused:
+            return blend_kernel.trust_blend(
+                disp, margin, out, kev, stereo, params.num_disparities,
+                float(params.min_disparity))
+        return blend_plain(disp, margin, out, kev, stereo, params,
+                           stereo_weight, blend, trust_scale)
+
+
+def blend_plain(disp: torch.Tensor, margin: Optional[torch.Tensor],
+                out: torch.Tensor, every: int, stereo: bool,
+                params: SGBMParams, stereo_weight: float = STEREO_WEIGHT,
+                blend: str = "confidence",
+                trust_scale: int = 1) -> torch.Tensor:
+    """:func:`guidance_blend` after the guide's forward, in plain
+    operations: the guide's output on the keyframes, ``out``
+    (ceil(B / every), H, W), expanded to the batch of ``disp``, a
+    monocular one landed, then mixed. The twin of kernels F1 and F2."""
+    b = disp.shape[0]
+    out = out.repeat_interleave(every, dim=0)[:b] if every > 1 else out
+    if stereo:
+        guide = out
+    else:
+        mono = out
+        dims = (-2, -1)
+        mmin = mono.amin(dim=dims, keepdim=True)
+        mmax = mono.amax(dim=dims, keepdim=True)
+        guide = ((mono - mmin) / torch.clamp(mmax - mmin, min=1e-6)
+                 * float(params.num_disparities))
         if blend == "confidence":
-            return confidence_trust_blend(
-                disp, margin, guide,
-                min_disparity=float(params.min_disparity),
-                trust_scale=trust_scale)
-        return stereo_weight * disp + (1.0 - stereo_weight) * guide
+            conf_w = torch.where(
+                disp > float(params.min_disparity) - 0.5, margin, 0.0)
+            s, t = ssi_align(mono, torch.clamp(disp, min=0.0), conf_w)
+            g_ssi = torch.clamp(mono * s + t, 0.0,
+                                float(params.num_disparities))
+            guide = torch.where(s > 0.0, g_ssi, guide)
+    if blend == "confidence":
+        return confidence_trust_blend(
+            disp, margin, guide,
+            min_disparity=float(params.min_disparity),
+            trust_scale=trust_scale)
+    return stereo_weight * disp + (1.0 - stereo_weight) * guide
 
 
 def host_copy_async(t: torch.Tensor):
@@ -245,7 +273,8 @@ def depth_batch_pipeline(
             # before the blend: the margin at former holes stays ~0, so
             # the guidance still owns them
             with span("stage.fill", frames):
-                disp = fill_holes_op(disp, float(params.min_disparity - 1))
+                disp = blend_kernel.fill_holes(
+                    disp, float(params.min_disparity - 1))
         if guidance_fn is not None:
             with span("stage.guidance", frames):
                 disp = guidance_blend(

@@ -34,10 +34,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from video3d_tpu_torch.kernels import (attention, costvol, flowmatch, image,
-                                       sgm, speckle, warp, wmajor)
+from video3d_tpu_torch.kernels import (attention, blend, costvol, flowmatch,
+                                       image, sgm, speckle, warp, wmajor)
 from video3d_tpu_torch.ops import flow, stereo
 from video3d_tpu_torch.ops.attention import attention_plain
+from video3d_tpu_torch.ops.fill import fill_holes
 from video3d_tpu_torch.ops.image import eyes_gray_plain, resize2d
 from video3d_tpu_torch.ops.speckle import speckle_filter_device
 from video3d_tpu_torch.ops.stereo import SGBMParams, sgm_aggregate
@@ -805,3 +806,85 @@ def check_b7(device, b, heads, s, d, dtype, seed=5) -> None:
             frac = (err <= 2.0 ** -7 * want.abs() + 2.0 ** -10).float()
             assert frac.mean().item() >= 0.999, f"{what}: {frac.mean()}"
     assert attention.launches == n + 2
+
+
+# F1 and F2: (batch, height, width, every, guide, fill): heights and widths
+# below the window's 17 (it clips at both edges), off F2's strip of 240
+# columns and its segment of 64 rows, every K with a last group short of
+# K; then 1080p half-SBS at batch 2 and 8, K = 1 and 4, both guides, the
+# fill on, and at batch 8 off
+FB_CASES = [
+    (2, 9, 40, 1, "stereo", True), (3, 16, 13, 2, "mono", True),
+    (1, 1, 5, 1, "mono", True), (2, 5, 1, 1, "stereo", True),
+    (5, 23, 250, 4, "mono", False), (4, 70, 300, 4, "stereo", False),
+    (3, 65, 241, 2, "mono", True), (8, 129, 481, 4, "stereo", True),
+    (6, 64, 240, 4, "mono", True), (2, 33, 17, 1, "stereo", False),
+] + [(b, 1080, 1920, k, g, True) for b in (2, 8) for k in (1, 4)
+     for g in ("stereo", "mono")] + [
+    (8, 1080, 1920, k, g, False) for k in (1, 4) for g in ("stereo", "mono")]
+
+
+def blend_inputs(b: int, h: int, w: int, every: int, guide: str, seed: int,
+                 device) -> tuple:
+    """(disp, margin, the guide's output) f32 for F1 and F2 at D = 64:
+    ``disp`` a smooth field in [1, 60] with noise and 10% holes (-1),
+    holes at both ends of every 5th row, row 2 of frame 0 blank, frame 1
+    all holes (no confident mass: trust 1, a degenerate fit); ``margin``
+    uniform in [0, 1], a twentieth of that in the left quarter (windows
+    under 2% of confident mass: the frame's ratio); the guide on
+    ceil(b / every) keyframes: ``stereo`` the field with noise, 20 px off
+    in a block; ``mono`` an affine map of the field with noise, the last
+    of two or more keyframes reversed (a fit with s <= 0: the min-max
+    landing)."""
+    r = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    field = 30.5 + 29.5 * np.sin(xx * 6.0 / w + yy * 3.0 / h)
+    disp = (field + r.normal(0.0, 0.3, (b, h, w))).astype(np.float32)
+    disp[r.random(disp.shape) < 0.1] = -1.0
+    disp[:, ::5, :3] = -1.0
+    disp[:, ::5, -2:] = -1.0
+    disp[0, min(2, h - 1)] = -1.0
+    disp[1:2] = -1.0
+    margin = r.uniform(0.0, 1.0, (b, h, w)).astype(np.float32)
+    margin[:, :, :w // 4] *= 0.05
+    g = -(-b // every)
+    if guide == "stereo":
+        out = field + r.normal(0.0, 1.0, (g, h, w))
+        out[:, h // 3:h // 2, w // 2:3 * w // 4] += 20.0
+    else:
+        out = 0.5 * field + 3.0 + r.normal(0.0, 0.1, (g, h, w))
+        if g > 1:
+            out[-1] *= -1.0
+    return tuple(torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+        device) for a in (disp, margin, out))
+
+
+def check_fill_blend(device, b, h, w, every, guide, fill, seed=18) -> None:
+    """F1's fill (one launch) bit-equal to its twin; the blend (two
+    launches, three for a monocular guide) the same bits on a second run,
+    and within 1e-3 px of its twin (``stages/depth.py blend_plain``) on
+    >= 99.9% of the pixels and within 1 px on all: the kernels sum in
+    another order than the twin's f32 cumulative sums, which can flip the
+    trust gate (``den > 0.02 * area``) at a few pixels."""
+    from video3d_tpu_torch.stages.depth import blend_plain
+
+    p = SGBMParams()
+    disp, margin, out = blend_inputs(b, h, w, every, guide, seed, device)
+    stereo = guide == "stereo"
+    what = f"F1/F2 at {(b, h, w)}, K={every}, {guide}, fill {fill}"
+    n = blend.launches
+    if fill:
+        filled = blend.fill_holes(disp, -1.0)
+        assert torch.equal(filled, fill_holes(disp, -1.0)), f"{what}: fill"
+        disp = filled
+    args = (disp, margin, out, every, stereo)
+    got = blend.trust_blend(*args, p.num_disparities, p.min_disparity)
+    again = blend.trust_blend(*args, p.num_disparities, p.min_disparity)
+    assert blend.launches == n + fill + 2 * (2 if stereo else 3), what
+    want = blend_plain(*args, p)
+    torch.cuda.synchronize(device)
+    assert torch.equal(got, again), f"{what}: runs differ"
+    err = (got - want).abs()
+    within = (err <= 1e-3).float().mean().item()
+    assert within >= 0.999, f"{what}: {within} within 1e-3 px"
+    assert err.max().item() <= 1.0, f"{what}: max |err| {err.max().item()}"

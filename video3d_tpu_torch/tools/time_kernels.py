@@ -9,7 +9,10 @@ the RGB eyes), ``b1``, ``b2`` and ``b3`` (5 paths, int16 accumulator; 8,
 f32), ``b4`` (3 bands, and 9 and 65: per-column histograms), ``b8a`` (8
 and 5 paths on the f32 and bf16 volume B1's over 3), ``b8b`` (each way and
 the round trip, beside a ``clone``: the card's copy rate) and ``b8c``
-(both directions in one launch); once, at their paths' shapes: ``b5``
+(both directions in one launch), ``fb`` (the fill-and-blend layer, F1
+and F2, at K = 1 and 4 with a stereo and a monocular guide, per batch,
+beside its bound: the disparity, the margin and the guide's keyframes
+read once and the blend written once); once, at their paths' shapes: ``b5``
 (the public warp at 1080x1920 and 270x480; the EMA step at 1080x1920 from
 a 270x480 guide, gate on), ``b6`` (the public match and the level step at
 270x480), ``b7`` (B7a and B7b at (2, 16, 577, 64) and the K=1 hybrid's
@@ -56,7 +59,8 @@ from video3d_tpu_torch.kernels import costvol, image, sgm, speckle, wmajor
 from video3d_tpu_torch.ops.stereo import (INVALID, SGBMParams,
                                           acc_dtype_for_params, sgm_aggregate)
 from video3d_tpu_torch.tools import probe_i16
-from video3d_tpu_torch.tools.card_checks import (profile_kernels, sbs_batch,
+from video3d_tpu_torch.tools.card_checks import (blend_inputs,
+                                                  profile_kernels, sbs_batch,
                                                   smooth_plane)
 
 H, W_EYE, D = 1080, 960, 64
@@ -86,6 +90,12 @@ GUIDE_OPS = WARP_OPS + 2 + 4 + 1 + 4
 # P per element: add 1, add+sub 2, the column compare and select 2, the
 # cast 5, the roll's casts 2, the halving 3
 P_OPS = 15
+# F1 and F2 per pixel: the confidence, the clamp and the agreement (5),
+# twice (F1's statistics, F2's ring), the landing of a monocular guide
+# (4) three times, the fit's terms and sums (12), the running sums (4), the
+# 17-wide horizontal sums (34), the gate, the ratio and the clamp (6), the
+# blend (6)
+FB_OPS = 2 * 5 + 3 * 4 + 12 + 4 + 34 + 6 + 6
 
 
 def cuda_ms(fn, reps: int = 10, warm: bool = True) -> float:
@@ -195,8 +205,8 @@ def _per(ms, n):
     return None if ms is None else ms / n
 
 
-WORDS = ("i1", "b1", "b2", "b3", "b4", "b8a", "b8b", "b8c", "b5", "b6", "b7",
-         "p")
+WORDS = ("i1", "b1", "b2", "b3", "b4", "b8a", "b8b", "b8c", "fb", "b5", "b6",
+         "b7", "p")
 PATHS = ("upscale", "smoother", "crestereo", "dpt")
 
 
@@ -225,7 +235,8 @@ def main(argv=None) -> int:
     rows = {}
     p = SGBMParams()
     per_batch = {"i1": i1, "b1": b1, "b2": b2, "b3": b3, "b4": b4,
-                 "b8a": b8a, "b8b": b8b, "b8c": b8c, "digest": digest}
+                 "b8a": b8a, "b8b": b8b, "b8c": b8c, "fb": fb,
+                 "digest": digest}
     for nb in batches:
         frames = torch.from_numpy(sbs_batch(nb)).to("cuda")
         gl, gr = image.eyes_gray(frames, True)[:2]
@@ -468,6 +479,49 @@ def b8c(bt, rows) -> None:
         print(f"  plan: blocks per SM, SMs, blocks, rounds, rows a tile, "
               f"shared bytes = {wmajor.horizontal_plan}")
     del cost_t
+
+
+def fb(bt, rows) -> None:
+    """The fill-and-blend layer a batch (F1's fill, then F1's statistics,
+    F1's agreement for a monocular guide and F2), at K = 1 and 4 with a
+    stereo and a monocular guide, beside its twin (``ops/fill.py
+    fill_holes`` and ``stages/depth.py blend_plain``), then the fill and
+    the blend alone."""
+    from video3d_tpu_torch.kernels import blend
+    from video3d_tpu_torch.ops.fill import fill_holes
+    from video3d_tpu_torch.stages.depth import blend_plain
+
+    nb, p = bt.nb, bt.p
+    h, w = bt.gl.shape[1:]
+    plane = h * w * 4
+    for every in (1, 4):
+        for guide in ("stereo", "mono"):
+            disp, margin, out = blend_inputs(nb, h, w, every, guide, 18,
+                                             "cuda")
+            stereo = guide == "stereo"
+            args = (margin, out, every, stereo)
+            measure(rows, f"F-k{every}-{guide}{bt.tag}",
+                    (f"F1 + F2 fill and trust blend, K={every}, {guide} "
+                     f"guide, batch {nb}", "blend.cu",
+                     "none (plain jnp: video3d_tpu/ops/fill.py, "
+                     "ops/boxsum.py, stages/depth.py)"),
+                    f"ms a batch of {nb} at 1080p half-SBS",
+                    lambda: blend.trust_blend(
+                        blend.fill_holes(disp, -1.0), *args,
+                        p.num_disparities, p.min_disparity),
+                    lambda: blend_plain(fill_holes(disp, -1.0), *args, p),
+                    # disp, margin and the keyframes read once, the blend
+                    # written once
+                    ((3 * nb + out.shape[0]) * plane, FB_OPS * nb * h * w),
+                    (blend, "launches"), reps=20, plain_reps=3, device=True)
+            filled = blend.fill_holes(disp, -1.0)
+            fill_ms = cuda_ms(lambda: blend.fill_holes(disp, -1.0), 20)
+            blend_ms = cuda_ms(lambda: blend.trust_blend(
+                filled, *args, p.num_disparities, p.min_disparity), 20)
+            print(f"  fill alone {fill_ms:.4f} ms (bound "
+                  f"{bound(2 * nb * plane)[0]:.4f}); blend alone "
+                  f"{blend_ms:.4f} ms")
+            del disp, margin, out, filled
 
 
 def probe(rows) -> None:
