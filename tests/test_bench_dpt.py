@@ -28,12 +28,19 @@ import torch
 from benchmark.harness import cell, weights
 from benchmark.harness.registry import Registry
 from benchmark.tests.conftest import make_tiny
+from tests.tiny_window import one_thread, window_seconds  # noqa: F401
+
 from video3d_tpu_torch.models import dpt as tdpt
+
+# thousands of small ops beside other workers (tests/tiny_window.py)
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 ROOT = Path(__file__).resolve().parents[1]
 FULL = "dpt_hybrid_k1_hsbs"  # the cell whose limits the tiny cell keeps
-# the tiny cell's window: a batch takes ~0.2 s on 8 idle cores, and
-# several times that beside the suite's other workers
+# the tiny cell's least window: a batch takes ~0.2 s on 8 idle cores, and
+# several times that beside the suite's other workers, so a run's window
+# is sized from the batch time measured just before it
+# (tests/tiny_window.py)
 WINDOW_S = 6.0
 TINY = dict(kind="dpt_large", image_size=384, patch_size=16, num_channels=3,
             hidden_size=32, num_hidden_layers=4, num_attention_heads=2,
@@ -295,8 +302,9 @@ def test_a_tiny_dpt_cell_is_correct(tiny_dpt, kind):
     ``model_checkpoint`` and the kind checks it), the window, the
     reference and ``step_mfu``."""
     keep = {}
-    out = cell.run(tiny_dpt, "tiny_dpt", 2**31 + 17, WINDOW_S, False, "cpu",
-                   log=lambda m: None, keep=keep)
+    out = cell.run(tiny_dpt, "tiny_dpt", 2**31 + 17,
+                   window_seconds(tiny_dpt, "tiny_dpt", WINDOW_S), False,
+                   "cpu", log=lambda m: None, keep=keep)
     assert out["correct"], out["checked"]
     run = keep["run"]
     assert run.keyframes == 2 and run.guide_work == kind.work(TINY, 32, 256)
@@ -318,8 +326,9 @@ def test_a_constant_guide_fails_the_cells_limits(tiny_dpt, monkeypatch):
         return torch.ones(pixels.shape[0], *pixels.shape[1:3])
 
     monkeypatch.setattr(tdpt.DPTDepthModel, "forward", constant)
-    out = cell.run(tiny_dpt, "tiny_dpt", 2**31 + 17, WINDOW_S, False, "cpu",
-                   log=lambda m: None)
+    out = cell.run(tiny_dpt, "tiny_dpt", 2**31 + 17,
+                   window_seconds(tiny_dpt, "tiny_dpt", WINDOW_S), False,
+                   "cpu", log=lambda m: None)
     assert not out["correct"], out["checked"]
 
 

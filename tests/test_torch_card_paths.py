@@ -14,8 +14,10 @@ path, the flow-smoothed stage on a panning clip, the DPT hybrid from the
 benchmark's seeded DPT-large checkpoint at K = 4 and K = 1, MODE_HH, both
 W-major routes against legacy, ``sgm_aggregate_pallas`` through its public
 entry, the int16 probe's own run, the CREStereo hybrid (the shipped
-default, K = 4, and K = 1; bf16 on the card against f32 on the CPU) and
-the 4K upscale (each upsample against its CPU run; ``DepthUpscaler`` to
+default, K = 4, and K = 1; bf16 on the card against f32 on the CPU), the
+published CREStereo from the benchmark's seeded weights as the hybrid's
+guide at K = 4 and K = 1 (bf16 on the card against the float32 reference)
+and the 4K upscale (each upsample against its CPU run; ``DepthUpscaler`` to
 PNG16 and to mp4).
 """
 
@@ -118,6 +120,20 @@ def dpt_checkpoint(device):
 
     reg = Registry()
     config = reg.config("dpt_large_hybrid")
+    kind = reg.guide(config["guide"]["kind"])
+    return (weights.path(kind, config, reg.root, device), config["guide"],
+            kind)
+
+
+def published_checkpoint(device):
+    """(weights file, guide, kind) of the benchmark's
+    ``crestereo_published_hybrid`` configuration: the published CREStereo's
+    ``state_dict`` written from its seed under ``TMPDIR`` on first use."""
+    from benchmark.harness import weights
+    from benchmark.harness.registry import Registry
+
+    reg = Registry()
+    config = reg.config("crestereo_published_hybrid")
     kind = reg.guide(config["guide"]["kind"])
     return (weights.path(kind, config, reg.root, device), config["guide"],
             kind)
@@ -499,6 +515,82 @@ def test_crestereo_bf16_matches_f32_on_cpu(crestereo_runs):
     d = (cfn(left, right).cpu() - cpu_fn(left.cpu(), right.cpu())).abs()
     assert float((d <= 0.5).float().mean().item()) >= 0.99
     assert float(d.median().item()) <= 0.1
+
+
+@pytest.fixture(scope="module")
+def published_runs(tmp_path_factory):
+    """``run(kev)``: the hybrid with the published CREStereo at published
+    widths (``--guidance crestereo --model <file>``) at K = ``kev``, two
+    batches of 8 to PNG16, the network's passes recorded; kept per K."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernels have no CPU mode")
+    ckpt, guide, kind = published_checkpoint("cuda")
+    runs = {}
+
+    def run(kev):
+        if kev in runs:
+            return runs[kev]
+        work = tmp_path_factory.mktemp(f"published_k{kev}")
+        ext = StereoDepthExtractor(work_dir=str(work), batch_size=8,
+                                   model_checkpoint=str(ckpt),
+                                   guidance_every=kev)
+        ext.load_model()
+        assert ext._guidance_fn is not None, "the published file did not load"
+        kind.check(ext._guidance_fn, guide)
+        passes = []
+        hook = ext._guidance_fn.module.register_forward_hook(
+            lambda mod, args, out: passes.append(tuple(args[0].shape)))
+        batches = [(sbs_frames(8, SEED + 80 + i), 8) for i in range(2)]
+        try:
+            n = run_stage(ext, batches, work / "depth")
+        finally:
+            hook.remove()
+        runs[kev] = dict(ext=ext, n=n, counts=counts(), passes=passes,
+                         batches=batches, cache=work / "depth", ckpt=ckpt,
+                         guide=guide, kind=kind)
+        return runs[kev]
+
+    return run
+
+
+@pytest.mark.parametrize("kev", [4, 1])
+def test_crestereo_published_path(published_runs, kev):
+    """One guidance call of 8 / K keyframes a batch, each call the two
+    passes at 272x480 and 544x960; the stage's kernels, F1's fill and
+    statistics and F2; then the fill, blend and twin checks of a guided
+    batch."""
+    run = published_runs(kev)
+    ext, c = run["ext"], run["counts"]
+    assert ext.guidance == "crestereo" and run["n"] == 16
+    assert [c[k] for k in ("B1", "B2", "B3", "B4", "B5", "B6", "B7",
+                           "F")] == [2, 2, 2, 2, 0, 0, 0, 2 * 3], c
+    k = 8 // kev
+    assert run["passes"] == [(k, 3, 272, 480), (k, 3, 544, 960)] * 2, \
+        run["passes"]
+    maps = read_maps(run["cache"], run["n"])
+    assert abs(median_px(maps) - 2 * SHIFT_EYE) <= 0.5
+    gfn = ext._guidance_fn
+    x0 = torch.from_numpy(run["batches"][0][0]).to("cuda")
+    left, right = check_guided_batch(x0, gfn, maps[:8], kev)
+    guide = gfn(left[::kev], right[::kev])
+    assert guide.shape == (k, H, W_SBS) and bool(torch.isfinite(guide).all())
+
+
+def test_crestereo_published_matches_f32_reference(published_runs):
+    """One 1080p keyframe: the bf16 program on the card against the
+    float32 reference (TF32 off) on the card. At the cell's shape, on a
+    clip frame, bf16 moves the guide by ~0.04 px in the mean and ~0.15 at
+    most, the fp8 control by ~0.4 and ~2.3; the bounds, 0.1 px in the
+    mean and 1 px at most, lie between."""
+    run = published_runs(4)
+    gfn = run["ext"]._guidance_fn
+    left, right = rgb_eyes(torch.from_numpy(run["batches"][0][0][:1]).to(
+        "cuda"))
+    net = run["kind"].reference(run["ckpt"], run["guide"], "cuda", False)
+    want = net.guidance(left.double(), right.double(), "f64")
+    err = (gfn(left, right).double() - want).abs()
+    assert float(err.mean()) <= 0.1 and float(err.max()) <= 1.0, \
+        (float(err.mean()), float(err.max()))
 
 
 def test_upscale_ops_and_stage(crestereo_runs):

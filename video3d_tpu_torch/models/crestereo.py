@@ -71,11 +71,13 @@ class CREStereoConfig:
 
 class Conv2d(nn.Conv2d):
     """flax ``nn.Conv(dtype=...)``: input, kernel and bias cast to the
-    compute dtype, output in it."""
+    compute dtype, output in it. ``k``: a side, or (height, width); the
+    padding keeps the size at stride 1."""
 
-    def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
+    def __init__(self, cin: int, cout: int, k, stride: int = 1,
                  dtype: torch.dtype = torch.float32):
-        super().__init__(cin, cout, k, stride=stride, padding=k // 2)
+        pad = tuple(n // 2 for n in k) if isinstance(k, tuple) else k // 2
+        super().__init__(cin, cout, k, stride=stride, padding=pad)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -254,22 +256,32 @@ def load_crestereo_guidance(checkpoint=BUNDLED_WEIGHTS,
     """Stereo guidance fn for the depth stage: RGB eyes (B, H, W, 3) f32 in
     [0, 255] -> disparity (B, H, W) f32 in pixels.
 
-    ``checkpoint`` is a ``.safetensors`` file of this module's
-    ``state_dict`` (default: the bundled v1 weights); a missing file
-    raises, and the stage then degrades to stereo-only. The convs run in
-    ``dtype`` (weights stay f32). With H >= 720 the pair is resized
-    bilinearly to 1/``infer_scale_hd``, matched, and the disparity scaled
-    by ``infer_scale_hd`` and resized back. ``device`` defaults to
-    ``cuda`` and raises without it.
+    ``checkpoint`` is a ``.safetensors`` file of a ``state_dict`` (default:
+    the bundled v1 weights); a missing file raises, and the stage then
+    degrades to stereo-only. Its names pick the network: the published
+    CREStereo's (``update_block.*``, ``self_att_fn.*``) build
+    :class:`video3d_tpu_torch.models.crestereo_net.CREStereo` at the
+    file's widths (:func:`published_guidance`; ``cfg`` is the lite's and
+    is not read), any other this module's :class:`CREStereoLite` of
+    ``cfg``. The convs run in ``dtype`` (weights stay f32). The lite: with
+    H >= 720 the pair is resized bilinearly to 1/``infer_scale_hd``,
+    matched, and the disparity scaled by ``infer_scale_hd`` and resized
+    back. ``device`` defaults to ``cuda`` and raises without it.
     """
     device = loader_device(device, "load_crestereo_guidance")
     path = Path(checkpoint)
     if not path.is_file():
         raise FileNotFoundError(
             f"CREStereo weights not found: {checkpoint} (a .safetensors "
-            f"file of CREStereoLite's state_dict)")
+            f"file of CREStereoLite's or the published CREStereo's "
+            f"state_dict)")
+    state = load_weights(path)
+    from video3d_tpu_torch.models import crestereo_net
+
+    if crestereo_net.is_published(state):
+        return published_guidance(state, dtype, infer_scale_hd, device)
     model = CREStereoLite(dataclasses.replace(cfg, dtype=dtype))
-    model.load_state_dict(load_weights(path))
+    model.load_state_dict(state)
     model = model.to(device).eval().requires_grad_(False)
 
     def apply_fn(module, left: torch.Tensor, right: torch.Tensor):
@@ -286,6 +298,36 @@ def load_crestereo_guidance(checkpoint=BUNDLED_WEIGHTS,
             disp = module(ls, rs)
             with span("guide.resize_out"):
                 return resize2d(disp * float(s), h, w, method="bilinear")
+
+    return GuidanceFn(apply_fn, model, stereo=True)
+
+
+def published_guidance(state: Mapping[str, torch.Tensor], dtype: torch.dtype,
+                       infer_scale_hd: int, device) -> GuidanceFn:
+    """The published CREStereo of ``state``'s widths as a stereo guidance
+    fn: each keyframe pair resized bilinearly to its evaluation size
+    (:func:`video3d_tpu_torch.models.crestereo_net.eval_shape`: 1080x1920
+    -> 544x960 at ``infer_scale_hd`` 2), the two-pass inference, the
+    disparity scaled by W / w_eval and resized back, as the published
+    ``test.py`` does."""
+    from video3d_tpu_torch.models.crestereo_net import (CREStereo,
+                                                        PublishedConfig,
+                                                        eval_shape)
+
+    model = CREStereo(PublishedConfig.from_state_dict(state, dtype=dtype))
+    model.load_state_dict(state)
+    model = model.to(device).eval().requires_grad_(False)
+
+    def apply_fn(module, left: torch.Tensor, right: torch.Tensor):
+        h, w = left.shape[1], left.shape[2]
+        he, we = eval_shape(h, w, infer_scale_hd)
+        with torch.no_grad():
+            with span("guide.resize_in"):
+                ls, rs = (resize2d(e.movedim(-1, 1), he, we,
+                                   method="bilinear") for e in (left, right))
+            disp = module.infer(ls, rs)
+            with span("guide.resize_out"):
+                return resize2d(disp * (w / we), h, w, method="bilinear")
 
     return GuidanceFn(apply_fn, model, stereo=True)
 

@@ -812,7 +812,9 @@ def check_b7(device, b, heads, s, d, dtype, seed=5) -> None:
 # below the window's 17 (it clips at both edges), off F2's strip of 240
 # columns and its segment of 64 rows, every K with a last group short of
 # K; then 1080p half-SBS at batch 2 and 8, K = 1 and 4, both guides, the
-# fill on, and at batch 8 off
+# fill on, and at batch 8 off; last a stereo guide that goes below 0 over
+# much of the frame (``signed``: the published CREStereo's disparity is
+# not clamped) at batch 8, K = 1 and 4
 FB_CASES = [
     (2, 9, 40, 1, "stereo", True), (3, 16, 13, 2, "mono", True),
     (1, 1, 5, 1, "mono", True), (2, 5, 1, 1, "stereo", True),
@@ -821,7 +823,8 @@ FB_CASES = [
     (6, 64, 240, 4, "mono", True), (2, 33, 17, 1, "stereo", False),
 ] + [(b, 1080, 1920, k, g, True) for b in (2, 8) for k in (1, 4)
      for g in ("stereo", "mono")] + [
-    (8, 1080, 1920, k, g, False) for k in (1, 4) for g in ("stereo", "mono")]
+    (8, 1080, 1920, k, g, False) for k in (1, 4) for g in ("stereo", "mono")
+] + [(8, 1080, 1920, k, "signed", True) for k in (1, 4)]
 
 
 def blend_inputs(b: int, h: int, w: int, every: int, guide: str, seed: int,
@@ -833,7 +836,8 @@ def blend_inputs(b: int, h: int, w: int, every: int, guide: str, seed: int,
     uniform in [0, 1], a twentieth of that in the left quarter (windows
     under 2% of confident mass: the frame's ratio); the guide on
     ceil(b / every) keyframes: ``stereo`` the field with noise, 20 px off
-    in a block; ``mono`` an affine map of the field with noise, the last
+    in a block; ``signed`` the same 35 px lower (below 0 over much of
+    the frame); ``mono`` an affine map of the field with noise, the last
     of two or more keyframes reversed (a fit with s <= 0: the min-max
     landing)."""
     r = np.random.default_rng(seed)
@@ -848,9 +852,11 @@ def blend_inputs(b: int, h: int, w: int, every: int, guide: str, seed: int,
     margin = r.uniform(0.0, 1.0, (b, h, w)).astype(np.float32)
     margin[:, :, :w // 4] *= 0.05
     g = -(-b // every)
-    if guide == "stereo":
+    if guide in ("stereo", "signed"):
         out = field + r.normal(0.0, 1.0, (g, h, w))
         out[:, h // 3:h // 2, w // 2:3 * w // 4] += 20.0
+        if guide == "signed":
+            out -= 35.0
     else:
         out = 0.5 * field + 3.0 + r.normal(0.0, 0.1, (g, h, w))
         if g > 1:
@@ -870,7 +876,7 @@ def check_fill_blend(device, b, h, w, every, guide, fill, seed=18) -> None:
 
     p = SGBMParams()
     disp, margin, out = blend_inputs(b, h, w, every, guide, seed, device)
-    stereo = guide == "stereo"
+    stereo = guide != "mono"
     what = f"F1/F2 at {(b, h, w)}, K={every}, {guide}, fill {fill}"
     n = blend.launches
     if fill:
