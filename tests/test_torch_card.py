@@ -16,7 +16,10 @@ identical validity, disparity within 1e-5, margin within rtol 1e-6; B5
 too; B7 1e-5 in f32 and one bf16 ulp on >= 99.9% of the outputs; I1 1e-3;
 F1's fill bit-exact, its statistics and F2's blend within 1e-3 px on >=
 99.9% of the pixels and 1 px on all (sums in another order can flip the
-trust gate at a few pixels), the same bits on a second run.
+trust gate at a few pixels), the same bits on a second run; A1 within 1e-4
+of the largest |corr| (the twin's sampling coordinates round through
+grid_sample's normalised grid) and, on maps of a few pixels, 1e-5 of the
+CPU tests' float64 point loop, the same bits on a second run.
 The depth stage's spans (``core/trace.py``) are held to the device
 trace's clock on a 1080p batch of the CREStereo hybrid.
 """
@@ -123,6 +126,11 @@ def test_i1_matches_twin(dev, case):
 @pytest.mark.parametrize("case", card_checks.FB_CASES, ids=str)
 def test_fill_blend_matches_twin(dev, case):
     card_checks.check_fill_blend(dev, *case)
+
+
+@pytest.mark.parametrize("case", card_checks.A1_CASES, ids=str)
+def test_a1_matches_twin(dev, case):
+    card_checks.check_a1(dev, *case)
 
 
 def _stage_frames(dev, b=2, h=40, w=160, seed=21):

@@ -30,8 +30,9 @@ import torch
 import video3d_tpu_torch.kernels as kernels_api
 from video3d_tpu_torch.core import (VideoWriter, list_depth_frames,
                                     load_depth_png16)
-from video3d_tpu_torch.kernels import (attention, blend, costvol, flowmatch,
-                                       image, sgm, speckle, warp, wmajor)
+from video3d_tpu_torch.kernels import (agcl, attention, blend, costvol,
+                                       flowmatch, image, sgm, speckle, warp,
+                                       wmajor)
 from video3d_tpu_torch.ops.fill import fill_holes
 from video3d_tpu_torch.ops.image import (eyes_gray_plain, resize2d, rgb_eyes,
                                          rgb_to_gray)
@@ -61,6 +62,7 @@ COUNTERS = {  # kernel -> (wrapper module, its launch count)
     "B8b": (wmajor, "transpose_launches"),
     "B8c": (wmajor, "sweep_launches"), "P": (probe_i16, "launches"),
     "I1": (image, "launches"), "F": (blend, "launches"),
+    "A1": (agcl, "launches"),
 }
 
 
@@ -141,10 +143,17 @@ def published_checkpoint(device):
 
 @contextlib.contextmanager
 def twins():
-    """Swap the wrappers of B1-B4, B7, I1, F1 and F2 for their plain twins,
-    so the stage's own code runs on the card with no CUDA kernel of the
-    port."""
+    """Swap the wrappers of B1-B4, B7, I1, F1, F2 and A1 for their plain
+    twins, so the stage's own code runs on the card with no CUDA kernel of
+    the port."""
+    from video3d_tpu_torch.models.crestereo_net import (agcl_deformable,
+                                                        agcl_warped)
     from video3d_tpu_torch.ops.attention import attention_plain
+
+    def agcl_twin(f1, f2, flow, offset, small, groups, out=None):
+        if offset is None:
+            return agcl_warped(f1, f2, flow, small, groups)
+        return agcl_deformable(f1, f2, flow, offset, small, groups)
 
     swaps = (
         (costvol, "cost_volume", costvol.cost_volume_plain),
@@ -160,6 +169,7 @@ def twins():
          lambda disp, margin, out, every, stereo, nd, md: blend_plain(
              disp, margin, out, every, stereo,
              SGBMParams(num_disparities=nd, min_disparity=int(md)))),
+        (agcl, "correlate", agcl_twin),
     )
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     try:
@@ -557,8 +567,13 @@ def published_runs(tmp_path_factory):
 def test_crestereo_published_path(published_runs, kev):
     """One guidance call of 8 / K keyframes a batch, each call the two
     passes at 272x480 and 544x960; the stage's kernels, F1's fill and
-    statistics and F2; then the fill, blend and twin checks of a guided
-    batch."""
+    statistics and F2; every AGCL call one launch of A1 (40 of the first
+    pass and 20 of the second a call), and span ``guide.agcl`` counts them
+    ``fused``; then the fill, blend and twin checks of a guided batch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from video3d_tpu_torch.core import trace
+
     run = published_runs(kev)
     ext, c = run["ext"], run["counts"]
     assert ext.guidance == "crestereo" and run["n"] == 16
@@ -567,10 +582,22 @@ def test_crestereo_published_path(published_runs, kev):
     k = 8 // kev
     assert run["passes"] == [(k, 3, 272, 480), (k, 3, 544, 960)] * 2, \
         run["passes"]
-    maps = read_maps(run["cache"], run["n"])
-    assert abs(median_px(maps) - 2 * SHIFT_EYE) <= 0.5
+    calls = len(run["passes"]) // 2
+    assert c["A1"] == 60 * 1 * calls, c  # 60 AGCL calls, a launch each
     gfn = ext._guidance_fn
     x0 = torch.from_numpy(run["batches"][0][0]).to("cuda")
+    left, right = rgb_eyes(x0)
+    trace.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            gfn(left[::kev], right[::kev])
+        table = trace.summary()
+    finally:
+        trace.reset()
+    assert table["guide.agcl"]["count"] == 60
+    assert table["guide.agcl"]["counts"] == {"deformable": 20, "fused": 60}
+    maps = read_maps(run["cache"], run["n"])
+    assert abs(median_px(maps) - 2 * SHIFT_EYE) <= 0.5
     left, right = check_guided_batch(x0, gfn, maps[:8], kev)
     guide = gfn(left[::kev], right[::kev])
     assert guide.shape == (k, H, W_SBS) and bool(torch.isfinite(guide).all())

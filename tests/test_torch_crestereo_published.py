@@ -25,6 +25,7 @@ from benchmark.harness.registry import Registry
 from benchmark.reference import crestereo_published as ref
 from video3d_tpu_torch.models import crestereo as lite
 from video3d_tpu_torch.models import crestereo_net as net
+from video3d_tpu_torch.tools.card_checks import agcl_loop, agcl_points
 from tests.tiny_window import one_thread  # noqa: F401 (a fixture)
 
 # thousands of small ops beside other workers (tests/tiny_window.py)
@@ -142,53 +143,6 @@ def test_linear_attention_layer_is_its_formula(port, reference, layer):
     torch.testing.assert_close(ref_got.double(), want, rtol=0, atol=LOOP_TOL)
 
 
-def _bilinear(img: np.ndarray, x: float, y: float) -> np.ndarray:
-    """img (C, H, W) at pixel (x, y): the four taps, zero outside."""
-    c, hh, ww = img.shape
-    x0, y0 = int(np.floor(x)), int(np.floor(y))
-    out = np.zeros(c)
-    for yy, xx in ((y0, x0), (y0, x0 + 1), (y0 + 1, x0), (y0 + 1, x0 + 1)):
-        wgt = (1.0 - abs(x - xx)) * (1.0 - abs(y - yy))
-        if 0 <= yy < hh and 0 <= xx < ww:
-            out += wgt * img[:, yy, xx]
-    return out
-
-
-def _points(small):
-    if small:
-        return [(dx, dy) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
-    return [(dx, 0) for dx in range(-4, 5)]
-
-
-def _agcl_loop(f1, f2, flow, offset, small, groups):
-    """The AGCL point by point in float64: deformable (``offset``) or
-    warped and shifted with replicate padding."""
-    f1, f2, flow = (t.double().numpy() for t in (f1, f2, flow))
-    b, c, h, w = f1.shape
-    cg = c // groups
-    pts = _points(small)
-    out = np.zeros((b, groups * 9, h, w))
-    for n in range(b):
-        warped = np.zeros((c, h, w))
-        for y, x in itertools.product(range(h), range(w)):
-            warped[:, y, x] = _bilinear(f2[n], x + flow[n, 0, y, x],
-                                        y + flow[n, 1, y, x])
-        for g, (k, (dx, dy)), y, x in itertools.product(
-                range(groups), enumerate(pts), range(h), range(w)):
-            sl = slice(g * cg, (g + 1) * cg)
-            if offset is None:
-                yy, xx = min(max(y + dy, 0), h - 1), min(max(x + dx, 0), w - 1)
-                right = warped[sl, yy, xx]
-            else:
-                o = offset[n].double().numpy()
-                right = _bilinear(f2[n, sl],
-                                  x + flow[n, 0, y, x] + dx + o[2 * k, y, x],
-                                  y + flow[n, 1, y, x] + dy
-                                  + o[2 * k + 1, y, x])
-            out[n, g * 9 + k, y, x] = np.mean(f1[n, sl, y, x] * right)
-    return torch.from_numpy(out)
-
-
 @pytest.mark.parametrize("small", [False, True], ids=["1x9", "3x3"])
 @pytest.mark.parametrize("deformable", [True, False])
 def test_agcl_is_its_point_loop(reference, small, deformable):
@@ -203,7 +157,7 @@ def test_agcl_is_its_point_loop(reference, small, deformable):
     flow = 3.0 * torch.randn(b, 2, h, w, generator=g)
     offset = (torch.rand(b, 18, h, w, generator=g) * 2.0 - 1.0
               if deformable else None)
-    want = _agcl_loop(f1, f2, flow, offset, small, groups)
+    want = agcl_loop(f1, f2, flow, offset, small, groups)
     if deformable:
         got = net.agcl_deformable(f1, f2, flow, offset, small, groups)
     else:
@@ -215,6 +169,27 @@ def test_agcl_is_its_point_loop(reference, small, deformable):
                                         else offset[i:i + 1], small)
                          for i in range(b)])
     torch.testing.assert_close(ref_got.double(), want, rtol=0, atol=LOOP_TOL)
+
+
+@pytest.mark.parametrize("small", [False, True], ids=["1x9", "3x3"])
+@pytest.mark.parametrize("deformable", [True, False])
+def test_agcl_wrapper_runs_the_twin_on_the_cpu(small, deformable):
+    """``kernels/agcl.py correlate`` sends CPU tensors to the twin, which
+    gives the same bits, and launches nothing; ``kernel_layout`` leaves a
+    CPU tensor as it is."""
+    from video3d_tpu_torch.kernels import agcl
+
+    g = torch.Generator().manual_seed(9 + small + 2 * deformable)
+    f1, f2 = (torch.randn(2, 128, 5, 7, generator=g) for _ in range(2))
+    flow = 2.0 * torch.randn(2, 2, 5, 7, generator=g)
+    offset = (torch.rand(2, 18, 5, 7, generator=g) * 2.0 - 1.0
+              if deformable else None)
+    assert all(agcl.kernel_layout(t) is t for t in (f1, f2, flow))
+    n = agcl.launches
+    got = agcl.correlate(f1, f2, flow, offset, small, 2)
+    want = (net.agcl_deformable(f1, f2, flow, offset, small, 2) if deformable
+            else net.agcl_warped(f1, f2, flow, small, 2))
+    assert torch.equal(got, want) and agcl.launches == n
 
 
 def test_convex_upsample_is_its_sum(reference):
@@ -231,7 +206,7 @@ def test_convex_upsample_is_its_sum(reference):
         logits = np.array([m[n, k * 16 + i * 4 + j, y, x] for k in range(9)])
         wgt = np.exp(logits - logits.max())
         wgt /= wgt.sum()
-        for k, (dx, dy) in enumerate(_points(True)):
+        for k, (dx, dy) in enumerate(agcl_points(True)):
             if 0 <= y + dy < h and 0 <= x + dx < w:
                 want[n, :, rate * y + i, rate * x + j] += (
                     wgt[k] * rate * f[n, :, y + dy, x + dx])
@@ -356,7 +331,8 @@ def test_keyframe_resize_and_width_scale(ckpt, monkeypatch):
 def test_spans_count_steps_and_calls(port):
     """Under a profile: ``guide.refine`` counts 60 steps a forward over
     its two spans (40 and 20), ``guide.agcl`` is one span a step with 20
-    deformable calls, ``guide.encoder`` counts both eyes of each pass, and
+    deformable calls and none through kernel A1 (``fused``: the CPU runs
+    the twin), ``guide.encoder`` counts both eyes of each pass, and
     ``guide.transformer`` runs once."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -373,7 +349,7 @@ def test_spans_count_steps_and_calls(port):
     assert [r["counts"]["steps"] for r in recs
             if r["name"] == "guide.refine"] == [40, 20]
     assert table["guide.agcl"]["count"] == 60
-    assert table["guide.agcl"]["counts"] == {"deformable": 20}
+    assert table["guide.agcl"]["counts"] == {"deformable": 20, "fused": 0}
     assert all(recs[r["parent"]]["name"] == "guide.refine" for r in recs
                if r["name"] == "guide.agcl")
     assert table["guide.encoder"]["counts"] == {"images": 2 * 2 * 2}

@@ -77,8 +77,10 @@ port's is a wrapper around B8a's.
 
 Kernels of the port that replace no TPU kernel: I1 (``csrc/image.cu``,
 ``image.py``: the eyes' split, unsqueeze and gray, a dense product in the
-JAX stage) and F1, F2 (``csrc/blend.cu``, ``blend.py``: the hole fill and
-the confidence-trust blend after the guide, plain jnp in the JAX package).
+JAX stage) F1, F2 (``csrc/blend.cu``, ``blend.py``: the hole fill and the
+confidence-trust blend after the guide, plain jnp in the JAX package) and
+A1 (``csrc/agcl.cu``, ``agcl.py``: the published CREStereo's adaptive group
+correlation, which the JAX package does not have).
 """
 
 from video3d_tpu_torch.kernels.sgm import sgm_aggregate_pallas

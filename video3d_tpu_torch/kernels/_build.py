@@ -77,6 +77,8 @@ _SIGNATURES = {
     "v3d_blend_scratch": [_I, _I],
     "v3d_trust_blend": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
                         _P],
+    # agcl.cu
+    "v3d_agcl": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None

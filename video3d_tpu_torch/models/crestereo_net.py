@@ -34,11 +34,14 @@ layer-norm statistics, the linear-attention sums, the GRU's state and
 gates' blend, the flow, the sampling coordinates and the correlation are
 f32.
 
-On a CUDA device each refinement step's AGCL call and update are replays
-of CUDA graphs (:class:`StepGraphs`), captured per shape on first use:
-eager, the 60 steps' ~6,000 launches a call made the host, not the card,
-pace the stage. The update block's activations are channels-last, the
-layout of cuDNN's bf16 kernels, so no conv transposes its input or
+On a CUDA device each refinement step's AGCL call is one launch of kernel
+A1 (:mod:`video3d_tpu_torch.kernels.agcl`, ``csrc/agcl.cu``; the two AGCL
+functions here are its plain twin and run on the CPU), and its update a
+replay of a CUDA graph (:class:`StepGraphs`), captured per shape on first
+use: eager, the 60 steps' ~6,000 launches a call made the host, not the
+card, pace the stage. A1 writes the correlation channels-last into the
+update graph's input. The update block's activations are channels-last,
+the layout of cuDNN's bf16 kernels, so no conv transposes its input or
 output.
 
 Choices (points the published code or the paper leaves open, or where the
@@ -71,7 +74,8 @@ the eyes' stream): ``guide.encoder`` (``fnet`` on both eyes, each pass;
 counts ``images``), ``guide.transformer`` (both transformers, first pass),
 ``guide.refine`` (each pass's cascade of update steps; counts ``steps``:
 40 and 20 at ``iters`` 20) and, inside it, ``guide.agcl`` (each AGCL call;
-counts ``deformable``: 1 at 1/16 and 1/8, 0 at 1/4).
+counts ``deformable``: 1 at 1/16 and 1/8, 0 at 1/4; ``fused``: 1 where A1
+ran, 0 on the CPU).
 """
 
 from __future__ import annotations
@@ -85,6 +89,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from video3d_tpu_torch.core.trace import span
+from video3d_tpu_torch.kernels import agcl
 from video3d_tpu_torch.models import crestereo
 
 # the evaluation size's multiple: the half-size pass reaches 1/16
@@ -509,14 +514,15 @@ def sine_encoding(d: int, h: int, w: int, device) -> torch.Tensor:
 
 
 class StepGraphs:
-    """The refinement's two pieces a step, the AGCL call and the update,
-    each a CUDA graph per key (the piece, its shapes and its variant),
-    captured on its first call and replayed after: a step costs the host
-    two replays and a few copies instead of ~100 launches.
+    """The refinement's update a step as a CUDA graph per key (its shapes
+    and whether it computes the mask), captured on its first call and
+    replayed after: a step costs the host a replay and a few copies
+    instead of ~100 launches.
 
     :meth:`run` copies its arguments into the graph's static inputs (the
     first ``pinned`` only when another tensor is passed than the last
-    time: the maps a level correlates, its context) and returns the
+    time: the level's context; none that is the static input itself, as
+    :meth:`inputs` gives it to be written in place) and returns the
     graph's static outputs, valid until that graph's next replay. Each
     graph keeps its own memory pool, so no replay overwrites another
     graph's outputs."""
@@ -524,12 +530,19 @@ class StepGraphs:
     def __init__(self):
         self.entries: Dict[tuple, list] = {}
 
+    def inputs(self, key: tuple) -> Optional[list]:
+        """The static inputs of ``key``'s graph, None before its capture."""
+        entry = self.entries.get(key)
+        return None if entry is None else entry[1]
+
     def run(self, key: tuple, fn, args: tuple, pinned: int = 0):
         entry = self.entries.get(key)
         if entry is None:
             entry = self.entries[key] = self._capture(fn, args)
         graph, inputs, out, last = entry
         for j, (s, a) in enumerate(zip(inputs, args)):
+            if s is a:
+                continue
             if j < pinned:
                 if last[j] is a:
                     continue
@@ -596,40 +609,38 @@ class CREStereo(nn.Module):
                offset: Optional[torch.Tensor], on) -> tuple:
         """``steps`` update steps at one level, correlating ``maps`` (the
         deformable AGCL with ``offset``, else the warped one); (h, flow,
-        the last step's mask). On a CUDA device each step's AGCL call and
-        update replay CUDA graphs (:class:`StepGraphs`)."""
+        the last step's mask). The AGCL is :func:`agcl.correlate` (kernel
+        A1 on a CUDA device, the maps and offset put in its layout once
+        here); on a CUDA device it writes into the static input of the
+        step's update graph (:class:`StepGraphs`), which then replays."""
         c = self.cfg
         inp = inp.to(c.dtype, memory_format=CHANNELS_LAST)
         h = h.contiguous(memory_format=CHANNELS_LAST)
-        consts = maps + ((offset,) if offset is not None else ())
+        f1, f2 = (agcl.kernel_layout(m) for m in maps)
+        if offset is not None:
+            offset = agcl.kernel_layout(offset)
         graphed = flow.is_cuda and not torch.is_grad_enabled()
+        counts = dict(deformable=int(offset is not None),
+                      fused=int(flow.is_cuda))
         mask = None
         for i in range(steps):
             small, last = i % 2 == 1, i == steps - 1
-
-            def agcl(*a, small=small):
-                if offset is None:
-                    return agcl_warped(*a, small, c.groups)
-                return agcl_deformable(a[0], a[1], a[3], a[2], small,
-                                       c.groups)
 
             def step(inp, h, corr, flow, last=last):
                 h, mask, delta = self.update_block(h, inp, corr, flow,
                                                    want_mask=last)
                 return h, flow + delta, mask
 
-            with span("guide.agcl", on, deformable=int(offset is not None)):
-                if graphed:
-                    corr = self.graphs.run(
-                        ("agcl", small, tuple(maps[0].shape),
-                         offset is not None), agcl, consts + (flow,),
-                        pinned=len(consts))
-                else:
-                    corr = agcl(*consts, flow)
+            key = ("update", last, tuple(h.shape))
+            static = self.graphs.inputs(key) if graphed else None
+            with span("guide.agcl", on, **counts):
+                corr = agcl.correlate(f1, f2, flow, offset, small, c.groups,
+                                      out=None if static is None
+                                      else static[2])
             if graphed:
-                h, flow, mask = self.graphs.run(
-                    ("update", last, tuple(h.shape)), step,
-                    (inp, h, corr, flow), pinned=1)
+                h, flow, mask = self.graphs.run(key, step,
+                                                (inp, h, corr, flow),
+                                                pinned=1)
             else:
                 h, flow, mask = step(inp, h, corr, flow)
         return h, flow, mask

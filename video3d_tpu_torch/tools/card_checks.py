@@ -31,11 +31,14 @@ too: ``sbs_batch``, ``smooth_plane`` and ``profile_kernels``.
 
 from __future__ import annotations
 
+import itertools
+
 import numpy as np
 import torch
 
-from video3d_tpu_torch.kernels import (attention, blend, costvol, flowmatch,
-                                       image, sgm, speckle, warp, wmajor)
+from video3d_tpu_torch.kernels import (agcl, attention, blend, costvol,
+                                       flowmatch, image, sgm, speckle, warp,
+                                       wmajor)
 from video3d_tpu_torch.ops import flow, stereo
 from video3d_tpu_torch.ops.attention import attention_plain
 from video3d_tpu_torch.ops.fill import fill_holes
@@ -894,3 +897,141 @@ def check_fill_blend(device, b, h, w, every, guide, fill, seed=18) -> None:
     within = (err <= 1e-3).float().mean().item()
     assert within >= 0.999, f"{what}: {within} within 1e-3 px"
     assert err.max().item() <= 1.0, f"{what}: max |err| {err.max().item()}"
+
+
+# A1: (batch, channels, height, width, small, deformable, reach): the 3x3
+# window (``small``) or the 1x9 row, the deformable route (offsets) or the
+# warped one; ``reach`` the flow's scale in pixels. First tiles off both
+# tile shapes (128 pixels: 2 x 64 and 8 x 16), a map one pixel high or
+# wide, a few pixels (also against the float64 point loop), one group (64
+# channels) and batch 1, flows that carry most points outside the frame;
+# then the main path's levels at batch 2 (two keyframes, 4 groups):
+# warped at 136x240 and 68x120, deformable at 34x60 and 17x30, both
+# patterns each; then the K = 1 cell's batch of 8 at 68x120
+A1_CASES = [
+    (b, c, h, w, small, deformable, reach)
+    for (b, c, h, w, reach) in ((2, 256, 37, 53, 6.0), (1, 256, 1, 50, 3.0),
+                                (1, 256, 50, 1, 3.0), (2, 256, 3, 5, 4.0),
+                                (1, 64, 9, 70, 2.0), (2, 256, 17, 30, 40.0))
+    for small in (False, True) for deformable in (False, True)
+] + [(2, 256, h, w, small, deformable, 3.0)
+     for (h, w, deformable) in ((136, 240, False), (68, 120, False),
+                                (34, 60, True), (17, 30, True))
+     for small in (False, True)] + [
+    (8, 256, 68, 120, small, deformable, 3.0)
+    for small in (False, True) for deformable in (False, True)]
+# maps of at most this many pixels (batch included) are also held to the
+# float64 point loop
+A1_LOOP_PIXELS = 64
+
+
+def bilinear_at(img: np.ndarray, x: float, y: float) -> np.ndarray:
+    """img (C, H, W) at pixel (x, y): the four taps, zero outside."""
+    c, hh, ww = img.shape
+    x0, y0 = int(np.floor(x)), int(np.floor(y))
+    out = np.zeros(c)
+    for yy, xx in ((y0, x0), (y0, x0 + 1), (y0 + 1, x0), (y0 + 1, x0 + 1)):
+        wgt = (1.0 - abs(x - xx)) * (1.0 - abs(y - yy))
+        if 0 <= yy < hh and 0 <= xx < ww:
+            out += wgt * img[:, yy, xx]
+    return out
+
+
+def agcl_points(small: bool) -> list:
+    """(dx, dy) of the 3x3 window (``small``) or the 1x9 row, row-major."""
+    if small:
+        return [(dx, dy) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
+    return [(dx, 0) for dx in range(-4, 5)]
+
+
+def agcl_loop(f1, f2, flow, offset, small, groups) -> torch.Tensor:
+    """The AGCL point by point in float64 on CPU tensors: deformable
+    (``offset``) or warped and shifted with replicate padding. The CPU
+    tests hold the twin and the reference to it; :func:`check_a1`, A1."""
+    f1, f2, flow = (t.double().numpy() for t in (f1, f2, flow))
+    b, c, h, w = f1.shape
+    cg = c // groups
+    pts = agcl_points(small)
+    out = np.zeros((b, groups * 9, h, w))
+    for n in range(b):
+        warped = np.zeros((c, h, w))
+        for y, x in itertools.product(range(h), range(w)):
+            warped[:, y, x] = bilinear_at(f2[n], x + flow[n, 0, y, x],
+                                          y + flow[n, 1, y, x])
+        for g, (k, (dx, dy)), y, x in itertools.product(
+                range(groups), enumerate(pts), range(h), range(w)):
+            sl = slice(g * cg, (g + 1) * cg)
+            if offset is None:
+                yy, xx = min(max(y + dy, 0), h - 1), min(max(x + dx, 0), w - 1)
+                right = warped[sl, yy, xx]
+            else:
+                o = offset[n].double().numpy()
+                right = bilinear_at(f2[n, sl],
+                                    x + flow[n, 0, y, x] + dx + o[2 * k, y, x],
+                                    y + flow[n, 1, y, x] + dy
+                                    + o[2 * k + 1, y, x])
+            out[n, g * 9 + k, y, x] = np.mean(f1[n, sl, y, x] * right)
+    return torch.from_numpy(out)
+
+
+def agcl_inputs(b, c, h, w, deformable, reach, seed, device) -> tuple:
+    """(f1, f2, flow, offset or None) for A1: standard normal maps
+    channels-last, a flow of scale ``reach`` px (NCHW), offsets uniform in
+    [-1, 1] (the model's bound) channels-last."""
+    r = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to(device)
+
+    f1, f2 = (agcl.kernel_layout(t(r.standard_normal((b, c, h, w))))
+              for _ in range(2))
+    flow = t(reach * r.standard_normal((b, 2, h, w)))
+    offset = (agcl.kernel_layout(t(r.uniform(-1.0, 1.0, (b, 18, h, w))))
+              if deformable else None)
+    return f1, f2, flow, offset
+
+
+def check_a1(device, b, c, h, w, small, deformable, reach, seed=19) -> None:
+    """A1, one launch a call, against its twin (``models/crestereo_net.py
+    agcl_warped`` / ``agcl_deformable``, f32 on the card): within 1e-4 of
+    the largest |corr|. Both compute the sampling coordinates in f32, but
+    the twin's round trip through grid_sample's normalised grid moves them
+    by up to ~W x 2^-23 px (3e-5 px at 240 columns), which on features of
+    random sign moves a correlation by up to ~3e-5 of the largest; the
+    64-term sums differ only in order (~1e-6). On maps of at most
+    ``A1_LOOP_PIXELS`` pixels also against :func:`agcl_loop` (the CPU
+    tests' float64 point loop), within 1e-5 of the largest |corr|: there
+    every coordinate is under 64 px and exact to 4e-6 px in f32. A second
+    call
+    with the flow channels-last and ``out`` given gives the same bits."""
+    from video3d_tpu_torch.models.crestereo_net import (agcl_deformable,
+                                                        agcl_warped)
+
+    f1, f2, flow, offset = agcl_inputs(b, c, h, w, deformable, reach, seed,
+                                       device)
+    groups = c // agcl.GROUP_CHANNELS
+    what = (f"A1 at {(b, c, h, w)}, {'3x3' if small else '1x9'}, "
+            f"{'deformable' if deformable else 'warped'}, reach {reach}")
+    n = agcl.launches
+    got = agcl.correlate(f1, f2, flow, offset, small, groups)
+    assert got.shape == (b, 9 * groups, h, w) and got.is_contiguous(
+        memory_format=torch.channels_last), what
+    flow_cl = flow.contiguous(memory_format=torch.channels_last)
+    again = agcl.correlate(f1, f2, flow_cl, offset, small, groups,
+                           out=torch.empty_like(got))
+    assert agcl.launches == n + 2, what
+    if deformable:
+        want = agcl_deformable(f1, f2, flow, offset, small, groups)
+    else:
+        want = agcl_warped(f1, f2, flow, small, groups)
+    torch.cuda.synchronize(device)
+    assert torch.equal(got, again), f"{what}: runs differ"
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    assert err <= 1e-4 * scale, f"{what}: max |err| {err} of {scale}"
+    if b * h * w <= A1_LOOP_PIXELS:
+        ref = agcl_loop(*(None if x is None else x.cpu()
+                          for x in (f1, f2, flow, offset)), small, groups)
+        err = (got.cpu().double() - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        assert err <= 1e-5 * scale, f"{what}: loop max |err| {err} of {scale}"

@@ -16,7 +16,10 @@ read once and the blend written once); once, at their paths' shapes: ``b5``
 (the public warp at 1080x1920 and 270x480; the EMA step at 1080x1920 from
 a 270x480 guide, gate on), ``b6`` (the public match and the level step at
 270x480), ``b7`` (B7a and B7b at (2, 16, 577, 64) and the K=1 hybrid's
-(8, 16, 577, 64), bf16 and f32) and ``p`` (the six int16 probe ops). Each
+(8, 16, 577, 64), bf16 and f32), ``p`` (the six int16 probe ops) and
+``a1`` (the published CREStereo's AGCL at each level of two 544x960
+keyframes, both patterns, per call and summed over a batch's 60 calls,
+beside the bound: both maps read once and the 36 maps written once). Each
 prints its time (CUDA events over back-to-back calls; device time from
 ``torch.profiler`` where a call's host cost shows), its plain twin's and
 the max |error| against it, the library call's where one PyTorch call
@@ -59,7 +62,7 @@ from video3d_tpu_torch.kernels import costvol, image, sgm, speckle, wmajor
 from video3d_tpu_torch.ops.stereo import (INVALID, SGBMParams,
                                           acc_dtype_for_params, sgm_aggregate)
 from video3d_tpu_torch.tools import probe_i16
-from video3d_tpu_torch.tools.card_checks import (blend_inputs,
+from video3d_tpu_torch.tools.card_checks import (agcl_inputs, blend_inputs,
                                                   profile_kernels, sbs_batch,
                                                   smooth_plane)
 
@@ -206,7 +209,7 @@ def _per(ms, n):
 
 
 WORDS = ("i1", "b1", "b2", "b3", "b4", "b8a", "b8b", "b8c", "fb", "b5", "b6",
-         "b7", "p")
+         "b7", "p", "a1")
 PATHS = ("upscale", "smoother", "crestereo", "dpt")
 
 
@@ -249,7 +252,8 @@ def main(argv=None) -> int:
                 fn(bt, rows)
         del bt, frames, gl, gr
         torch.cuda.empty_cache()
-    once = {"b5": b5, "b6": b6, "b7": b7, "p": probe, "upscale": upscale,
+    once = {"b5": b5, "b6": b6, "b7": b7, "p": probe, "a1": a1,
+            "upscale": upscale,
             "smoother": smoother, "crestereo": crestereo, "dpt": dpt}
     for name, fn in once.items():
         if name in words:
@@ -659,6 +663,55 @@ def b7(rows) -> None:
                         (attention, "launches"), reps=20, plain_reps=20,
                         device=True,
                         library=lambda: sdpa(q, k, v, scale=sm))
+
+
+# the published CREStereo's AGCL levels on a 544x960 keyframe pair: (name,
+# height, width, deformable, calls a forward)
+A1_LEVELS = (("1/16", 17, 30, True, 10), ("1/8", 34, 60, True, 10),
+             ("1/4 first pass", 68, 120, False, 20),
+             ("1/4 second pass", 136, 240, False, 20))
+
+
+def a1(rows) -> None:
+    """A1 at each AGCL level of the cell's batch (two 544x960 keyframes, 4
+    groups of 64 channels, flows of ~3 px), both patterns, beside its twin
+    (``models/crestereo_net.py agcl_warped`` / ``agcl_deformable``,
+    eager) and its bound (both f32 maps read once and the 36 f32 maps
+    written once; 9 x 256 f32 multiply-adds a pixel); then the 60 calls of
+    a batch summed, half of each level's calls a pattern."""
+    from video3d_tpu_torch.kernels import agcl
+    from video3d_tpu_torch.models.crestereo_net import (agcl_deformable,
+                                                        agcl_warped)
+
+    b, c, groups = 2, 256, 4
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    for name, h, w, deformable, calls in A1_LEVELS:
+        f1, f2, flow, offset = agcl_inputs(b, c, h, w, deformable, 3.0, 19,
+                                           "cuda")
+        px = b * h * w
+        for small in (False, True):
+            pattern = "3x3" if small else "1x9"
+            key = f"A1-{h}x{w}-{pattern}"
+
+            def twin(small=small):
+                if deformable:
+                    return agcl_deformable(f1, f2, flow, offset, small,
+                                           groups)
+                return agcl_warped(f1, f2, flow, small, groups)
+
+            measure(rows, key,
+                    (f"A1 agcl {name} {pattern}, batch {b}", "agcl.cu",
+                     "none (the JAX package has no published CREStereo)"),
+                    f"ms/call at ({b}, {c}, {h}, {w})",
+                    lambda small=small: agcl.correlate(
+                        f1, f2, flow, offset, small, groups),
+                    twin, (px * 4 * (2 * c + 9 * groups), px * 9 * c * 2),
+                    (agcl, "launches"), reps=50, plain_reps=5, device=True)
+            for k in total:
+                total[k] += rows[key][k] * calls / 2
+        del f1, f2, flow, offset
+    print(f"A1 a batch (2 keyframes, 60 calls): {total['ms']:.4f} ms; twin "
+          f"{total['plain_ms']:.4f} ms; bound {total['bound_ms']:.4f} ms")
 
 
 def _guide_work(config: str, h: int, w: int) -> dict:
